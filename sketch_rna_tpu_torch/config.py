@@ -1,0 +1,57 @@
+"""Configuration for the quantification pipeline.
+
+The reference constants keep the reference's exact defaults:
+
+  sketch_fraction   = 0.05   (src/main.cpp:43, global `sketch_size`)
+  chain_fraction    = 0.9    (src/main.cpp:185, `sparse_chain(..., 0.9)`)
+  em_max_iterations = 20     (src/main.cpp:188)
+  em_convergence    = 0.01   (src/main.cpp:188)
+  pseudocount       = 0.01   (src/isoform_assignment.cpp:54)
+  em_epsilon        = 1e-10  (src/isoform_assignment.cpp:28)
+  kmer_lengths      = (31,)  (src/main.cpp:215 default)
+
+The capacity knobs bound fixed-width device rows; anything past a
+capacity is counted and reported, never silent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    # --- reference-mirrored algorithm constants -------------------------
+    kmer_lengths: Tuple[int, ...] = (31,)
+    sketch_fraction: float = 0.05
+    chain_fraction: float = 0.9
+    em_max_iterations: int = 20
+    em_convergence: float = 0.01
+    pseudocount: float = 0.01
+    em_epsilon: float = 1e-10
+
+    # --- capacity / batching knobs ---------------------------------------
+    # Reads per device batch through the sketch + match kernels.
+    batch_size: int = 8192
+    # Minimum padded read length (the CLI pads to at least this).
+    max_read_len: int = 256
+    # Floor of the per-read sketch capacity (distinct kept hashes).
+    sketch_capacity: int = 32
+    # Candidate transcripts kept per read, by (score desc, tid asc).
+    candidate_capacity: int = 64
+    # EM / assignment accumulation dtype: "float64" reproduces the
+    # reference's C++ double math; "float32" is the fast mode.
+    em_dtype: str = "float32"
+
+    def sketch_capacity_for(self, k: int, read_len: Optional[int] = None) -> int:
+        """Auto-size sketch capacity from the padded read length (or an
+        explicit per-bucket width)."""
+        n_kmers = max((read_len or self.max_read_len) - k + 1, 1)
+        expected = n_kmers * self.sketch_fraction
+        # ~6 sigma headroom on a binomial tail, rounded up to a multiple
+        # of 8; never below the configured floor.
+        cap = int(math.ceil(expected + 6.0 * math.sqrt(max(expected, 1.0))))
+        cap = ((cap + 7) // 8) * 8
+        return max(cap, self.sketch_capacity)

@@ -1,0 +1,88 @@
+"""Single-k index construction in plain PyTorch.
+
+Reference pipeline (build_and_save_index, src/main.cpp:56-92 and
+build_kmer_to_transcript_map, src/sketch.cpp:51-74):
+  - transcripts shorter than k are stored in the index but not sketched
+    (src/main.cpp:66-75),
+  - per transcript: the FracMinHash sketch (a set),
+  - inverted map: hash -> ascending transcript ids.
+
+Every sketchable transcript is concatenated into one flat code array and
+every window hashed at once; a window counts iff it lies inside one
+transcript (the reference rolls within a single sequence,
+src/sketch.cpp:31-37) and its hash passes the threshold.  One
+`torch.unique` of the packed (hash, tid) pairs then sorts and dedups
+them, and the CSR arrays follow.  The result is bit-equal to the JAX
+package's build_index.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from sketch_rna_tpu_torch.config import QuantConfig
+from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32
+from sketch_rna_tpu_torch.index.artifact import IndexArtifact, KIndex
+from sketch_rna_tpu_torch.io.fasta import FastaRecords
+from sketch_rna_tpu_torch.io.packing import encode_sequence
+from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold
+
+log = logging.getLogger(__name__)
+
+# Windows hashed per pass: bounds the int64 temporaries of one pass.
+_CHUNK = 1 << 22
+_TID_BITS = 31
+
+
+def build_index(records: FastaRecords, config: QuantConfig, device="cpu") -> IndexArtifact:
+    if len(config.kmer_lengths) != 1:
+        raise NotImplementedError("multi-k index build: ROADMAP Queue 1 item 8")
+    (k,) = config.kmer_lengths
+    device = torch.device(device)
+    seq_codes = [encode_sequence(seq) for seq in records.seqs]
+    if any(c is None for c in seq_codes):
+        raise ValueError("records hold a non-ACGT sequence (load_fasta drops those)")
+    lengths = np.array([c.size for c in seq_codes], dtype=np.int32)
+    sketchable = np.flatnonzero(lengths >= k)
+    thr = fracminhash_threshold(config.sketch_fraction)
+
+    keys = np.zeros(0, dtype=np.uint32)
+    row_ptr = np.zeros(1, dtype=np.int32)
+    postings = np.zeros(0, dtype=np.int32)
+    if sketchable.size:
+        sk_lens = torch.from_numpy(lengths[sketchable].astype(np.int64)).to(device)
+        flat = torch.from_numpy(np.concatenate([seq_codes[i] for i in sketchable])).to(device)
+        # Owner (sketchable rank) of every base, and where that owner ends.
+        owner = torch.repeat_interleave(torch.arange(sketchable.size, device=device), sk_lens)
+        end_of = torch.cumsum(sk_lens, 0)[owner]
+        tids = torch.from_numpy(sketchable.astype(np.int64)).to(device)
+        n_win = flat.numel() - k + 1
+        pairs = []
+        for p0 in range(0, n_win, _CHUNK):
+            p1 = min(p0 + _CHUNK, n_win)
+            h = nthash_batch_u32(flat[p0 : p1 + k - 1][None, :], k)[0]
+            pos = torch.arange(p0, p1, device=device)
+            keep = (pos + k <= end_of[p0:p1]) & (h <= thr)
+            pairs.append((h[keep] << _TID_BITS) | tids[owner[p0:p1][keep]])
+        # Sorted distinct (hash, tid) pairs: set semantics per transcript.
+        pair = torch.unique(torch.cat(pairs))
+        h = pair >> _TID_BITS
+        uniq, counts = torch.unique_consecutive(h, return_counts=True)
+        keys = uniq.cpu().numpy().astype(np.uint32)
+        row_ptr = np.zeros(keys.size + 1, dtype=np.int32)
+        row_ptr[1:] = np.cumsum(counts.cpu().numpy())
+        postings = (pair & ((1 << _TID_BITS) - 1)).cpu().numpy().astype(np.int32)
+    log.info(
+        "index k=%d: %d keys, %d postings over %d sketchable transcripts",
+        k, keys.size, postings.size, sketchable.size,
+    )
+    return IndexArtifact(
+        names=list(records.names),
+        lengths=lengths,
+        kmer_lengths=(k,),
+        sketch_fraction=config.sketch_fraction,
+        per_k={k: KIndex(keys=keys, row_ptr=row_ptr, postings=postings)},
+    )

@@ -1,0 +1,285 @@
+"""Single-k quantification: sketch -> match -> classes -> EM -> CSV.
+
+Mirrors the JAX package's fused engine (pipeline._quantify_fused,
+src/main.cpp:165-197 in the reference):
+
+  - reads group by padded length exactly as pipeline._match_tables does
+    (power-of-two pads >= 256, each group's codes cut to its longest
+    read rounded up to 8), so sketch capacities agree with the JAX run;
+  - each batch of `batch_size` reads is sketched (kernel K1), probed,
+    expanded into one event row per read and grouped into top-C
+    candidates (kernel K4 twice) — match/rowmatch.py;
+  - the [N, C] tables narrow to the widest candidate set, collapse into
+    equivalence classes (when N >= 1024, as in the JAX engine), and run
+    the EM + soft assignment;
+  - write_csv emits rows in transcript-index order (PARITY.md dev. 2).
+
+Posting expansion sizes each batch's event rows to its largest read, so
+unlike the JAX engine there are no tier widths, calibration passes or
+reruns to make the result exact.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sketch_rna_tpu_torch.config import QuantConfig
+from sketch_rna_tpu_torch.em.classes import build_class_tables
+from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
+from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch
+from sketch_rna_tpu_torch.index.artifact import DeviceIndex, DeviceKIndex
+from sketch_rna_tpu_torch.io.packing import PackedReads
+from sketch_rna_tpu_torch.match.probe import probe
+from sketch_rna_tpu_torch.match.row_sort import row_sort
+from sketch_rna_tpu_torch.match.rowmatch import (
+    MatchResult,
+    pow2ceil,
+    row_events_to_candidates,
+    row_expand_from_runs,
+)
+
+log = logging.getLogger(__name__)
+
+# One fused run holds every read's [N, C] candidate tables on the device;
+# beyond this the JAX package streams (stream.py), which is not ported.
+FUSED_MAX_PADDED_READS = 1 << 21
+
+STAT_KEYS = ("sketch_overflow", "expand_dropped", "candidate_spilled")
+
+
+@dataclasses.dataclass
+class QuantResult:
+    names: List[str]
+    pi: np.ndarray  # [T] final EM abundances
+    weighted_counts: np.ndarray  # [T] soft-assigned read counts
+    has_entry: np.ndarray  # [T] bool: gets a CSV row
+    em_iterations: int
+    num_reads: int  # R (valid reads, incl. candidate-less)
+    num_mapped: int  # reads with >= 1 candidate (sum of weighted_counts)
+    stats: Dict[str, int]
+    timing: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _round_up(n: int, mult: int) -> int:
+    return ((int(n) + mult - 1) // mult) * mult
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _fold_ok(config: QuantConfig, num_transcripts: int) -> bool:
+    """Is folding single-candidate classes out of the EM loop exact?
+
+    A folded singleton assumes its E-step denominator pi[t]*count always
+    exceeds em_epsilon.  Iteration 1 sees pi0 = 1/T (covered by
+    T * epsilon < 1); every later pi[t] >= pseudocount (> epsilon when
+    epsilon < pseudocount) or, with pseudocount 0, >= the folded base.
+    """
+    eps = config.em_epsilon
+    if num_transcripts <= 0 or num_transcripts * eps >= 1.0:
+        return False
+    return eps < config.pseudocount or config.pseudocount == 0.0
+
+
+def sketch_match_step(
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    kindex: DeviceKIndex,
+    *,
+    k: int,
+    sketch_fraction: float,
+    sketch_cap: int,
+    chain_fraction: float,
+    candidate_capacity: int,
+    num_transcripts: int,
+    sketch: Callable = fused_sketch,
+    sort: Callable[[torch.Tensor], torch.Tensor] = row_sort,
+) -> MatchResult:
+    """One batch: sketch, probe, expand, group into top-C candidates.
+
+    sketch / sort: kernels K1 / K4 by default; their plain versions
+    (sketch_batch, row_sort_plain) check them on the same batch.
+    Stats: sketch_overflow, expand_dropped, candidate_spilled.
+    """
+    hashes, mask, sketch_overflow = sketch(codes, lengths, k, sketch_fraction, sketch_cap)
+    start, length = probe(hashes, mask, kindex.keys, kindex.row_ptr)
+    key, dropped = row_expand_from_runs(start, length, kindex.postings)
+    res = row_events_to_candidates(
+        key,
+        chain_fraction=chain_fraction,
+        candidate_capacity=candidate_capacity,
+        num_transcripts=num_transcripts,
+        sort=sort,
+    )
+    res.stats["sketch_overflow"] = sketch_overflow
+    res.stats["expand_dropped"] = dropped
+    return res
+
+
+def _match_tables(index: DeviceIndex, packed: PackedReads, config: QuantConfig):
+    """Candidate tables of every read, grouped by padded length as the
+    JAX engine groups them.  Returns (tid [N, C] int32, score [N, C]
+    int32, padded row count of the JAX engine, stats of 0-d tensors)."""
+    (k,) = index.kmer_lengths
+    kindex = index.per_k[k]
+    dev = index.device
+    B = config.batch_size
+    lengths_np = np.asarray(packed.lengths)
+    pad_of = np.maximum(256, 1 << np.ceil(np.log2(np.maximum(lengths_np, 1))).astype(np.int64))
+    pads = np.minimum(pad_of, max(int(packed.padded_len), 256))
+    unique_pads = sorted(set(pads.tolist()))
+    tids, scores = [], []
+    stats = {key: torch.zeros((), dtype=torch.int64, device=dev) for key in STAT_KEYS}
+    n_padded = 0
+    for pad in unique_pads:
+        rows = slice(None) if len(unique_pads) == 1 else np.flatnonzero(pads == pad)
+        n_rows = int(lengths_np[rows].size)
+        width = min(pad, packed.padded_len)
+        l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), k), 8))
+        codes = torch.from_numpy(np.ascontiguousarray(packed.codes[rows, :l_eff])).to(dev)
+        lengths = torch.from_numpy(lengths_np[rows].astype(np.int32)).to(dev)
+        cap = config.sketch_capacity_for(k, l_eff)
+        n_padded += _round_up(n_rows, B)
+        for b0 in range(0, n_rows, B):
+            res = sketch_match_step(
+                codes[b0 : b0 + B],
+                lengths[b0 : b0 + B],
+                kindex,
+                k=k,
+                sketch_fraction=config.sketch_fraction,
+                sketch_cap=cap,
+                chain_fraction=config.chain_fraction,
+                candidate_capacity=config.candidate_capacity,
+                num_transcripts=index.num_transcripts,
+            )
+            tids.append(res.tid)
+            scores.append(res.score)
+            for key in STAT_KEYS:
+                stats[key] += res.stats[key]
+    return torch.cat(tids), torch.cat(scores), n_padded, stats
+
+
+def _empty_result(index: DeviceIndex) -> QuantResult:
+    """Zero valid reads: a header-only CSV, as the reference would write."""
+    T = index.num_transcripts
+    return QuantResult(
+        names=list(index.names),
+        pi=np.full(T, 1.0 / max(T, 1)),
+        weighted_counts=np.zeros(T),
+        has_entry=np.zeros(T, dtype=bool),
+        em_iterations=0,
+        num_reads=0,
+        num_mapped=0,
+        stats={},
+    )
+
+
+def quantify(
+    index: DeviceIndex,
+    packed: PackedReads,
+    config: Optional[QuantConfig] = None,
+) -> QuantResult:
+    """Full quant on the index's device: sketch -> match -> EM ->
+    assignment (src/main.cpp:165-197)."""
+    config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
+    if len(index.kmer_lengths) != 1:
+        raise NotImplementedError("multi-k quant: ROADMAP Queue 1 item 8")
+    R = packed.num_reads
+    if R == 0:
+        return _empty_result(index)
+    B = config.batch_size
+    if _round_up(R, B) > FUSED_MAX_PADDED_READS:
+        raise NotImplementedError(
+            f"{R} reads exceed the fused engine's {FUSED_MAX_PADDED_READS} padded rows; "
+            "streaming engine: ROADMAP Queue 1 item 10"
+        )
+    T = index.num_transcripts
+    dev = index.device
+    timing: Dict[str, float] = {}
+
+    t0 = time.perf_counter()
+    tbl_tid, tbl_score, n_padded, stats = _match_tables(index, packed, config)
+    host_stats = {key: int(v) for key, v in stats.items()}
+    for key, v in host_stats.items():
+        if v:
+            log.warning("capacity overflow during matching: %s=%d", key, v)
+    timing["match"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    # Rows are rank-ordered, so narrowing to the widest candidate set
+    # (pow2) is lossless.
+    n_cand = (tbl_score > 0).sum(dim=1)
+    n_cand_max, num_mapped = (int(v) for v in torch.stack([n_cand.max(), (n_cand > 0).sum()]).tolist())
+    W = min(pow2ceil(max(n_cand_max, 1)), config.candidate_capacity)
+    tbl_tid = tbl_tid[:, :W]
+    tbl_score = tbl_score[:, :W]
+    if n_padded >= 1024:
+        table, static_base, static_has = build_class_tables(
+            tbl_tid, tbl_score, num_transcripts=T, fold=_fold_ok(config, T)
+        )
+    else:
+        table, static_base, static_has = (tbl_tid, tbl_score, None), None, None
+    _sync(dev)
+    timing["classes"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pi, iterations = run_em_tables(
+        table,
+        R,
+        num_transcripts=T,
+        max_iterations=config.em_max_iterations,
+        convergence_threshold=config.em_convergence,
+        pseudocount=config.pseudocount,
+        epsilon=config.em_epsilon,
+        dtype=config.em_dtype,
+        static_base=static_base,
+    )
+    weighted, has_entry = assign_reads_tables(
+        table,
+        pi,
+        num_transcripts=T,
+        dtype=config.em_dtype,
+        static_base=static_base,
+        static_has=static_has,
+    )
+    result = QuantResult(
+        names=list(index.names),
+        pi=pi.cpu().numpy(),
+        weighted_counts=weighted.cpu().numpy(),
+        has_entry=has_entry.cpu().numpy(),
+        em_iterations=iterations,
+        num_reads=R,
+        num_mapped=num_mapped,
+        stats=host_stats,
+    )
+    timing["em_assign"] = time.perf_counter() - t0
+    result.timing = timing
+    return result
+
+
+def format_cpp_double(v: float) -> str:
+    """C++ default ostream double formatting: %g with 6 significant
+    digits (src/data_io.cpp:148 uses the stream defaults)."""
+    return f"{v:.6g}"
+
+
+def write_csv(path: str, result: QuantResult) -> None:
+    """CSV schema of output_to_csv (src/data_io.cpp:133-152): header
+    Name,NumReads,EM_Abundance; rows only for transcripts with a read
+    entry, in transcript-index order."""
+    with open(path, "w") as fh:
+        fh.write("Name,NumReads,EM_Abundance\n")
+        for t in range(len(result.names)):
+            if result.has_entry[t]:
+                fh.write(
+                    f"{result.names[t]},{format_cpp_double(float(result.weighted_counts[t]))},"
+                    f"{format_cpp_double(float(result.pi[t]))}\n"
+                )

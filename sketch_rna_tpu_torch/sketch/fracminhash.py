@@ -1,0 +1,86 @@
+"""FracMinHash sketching: threshold filter + set-dedup — the plain
+PyTorch version of the fused sketch kernel (hash/sketch_kernel.py).
+
+Reference semantics (createSketch_FracMinhash_direct, src/sketch.cpp:24-39):
+  threshold = (uint32_t)(UINT32_MAX * fraction)      [C cast truncates]
+  keep a k-mer iff its (low-32-bit) forward ntHash <= threshold
+  the sketch is a SET: duplicates collapse, multiplicity is discarded.
+
+Per read the output is a fixed-capacity, ascending row of distinct kept
+hashes with a validity mask.  Hashes are int64 tensors holding uint32
+values; discarded lanes hold the sentinel 0xFFFFFFFF, which no kept hash
+can equal for any fraction < 1.  More distinct kept hashes than the row
+holds keeps the numerically smallest and counts the rest, never silent.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32
+
+SENTINEL = 0xFFFFFFFF
+
+
+def fracminhash_threshold(fraction: float) -> int:
+    """uint32 keep-threshold with the reference's C-cast truncation
+    (src/sketch.cpp:25-26): static_cast<uint32_t>(UINT32_MAX * fraction).
+
+    The reference stores the fraction in a `float` (global sketch_size =
+    0.05f, src/main.cpp:43) that widens to the `double` parameter, so
+    the product uses double(float(fraction)) — e.g. 0.05 yields
+    214748367, not 214748364.  Promote through float32 to match the
+    binary bit-for-bit."""
+    if not (0.0 <= fraction < 1.0):
+        raise ValueError("fraction must be in [0, 1) — 1.0 would collide with the pad sentinel")
+    f = np.float64(np.float32(fraction))  # float -> double, like the C++ call
+    return int(float(np.float64(0xFFFFFFFF) * f))  # truncates
+
+
+def sketch_batch(
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    k: int,
+    fraction: float,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sketch a padded read batch for one k.
+
+    codes: [B, L] uint8 base codes (zero-padded); lengths: [B] int32.
+    Returns (hashes [B, capacity] int64 ascending sentinel-padded,
+    mask [B, capacity] bool, n_overflow [] int64 — distinct kept hashes
+    dropped for exceeding capacity across the batch).
+    """
+    h = nthash_batch_u32(codes, k)  # [B, nk]
+    nk = h.shape[1]
+    pos = torch.arange(nk, dtype=torch.int64, device=h.device)
+    pos_ok = pos[None, :] < (lengths.long()[:, None] - (k - 1))
+    keep = pos_ok & (h <= fracminhash_threshold(fraction))
+    return dedup_select(torch.where(keep, h, SENTINEL), capacity)
+
+
+def dedup_select(hs: torch.Tensor, capacity: int):
+    """Sort each row, drop duplicates, compact with a second sort, and
+    take the first `capacity` distinct values.
+
+    hs: [B, nk] int64 with the sentinel on discarded lanes.  Returns
+    (hashes, mask, n_overflow) exactly as sketch_batch documents.
+    """
+    B, nk = hs.shape
+    hs = torch.sort(hs, dim=-1).values
+    dup = torch.zeros_like(hs, dtype=torch.bool)
+    dup[:, 1:] = hs[:, 1:] == hs[:, :-1]
+    hs = torch.where(dup & (hs != SENTINEL), SENTINEL, hs)
+    hs = torch.sort(hs, dim=-1).values
+    n_unique = (hs != SENTINEL).sum(dim=1)
+    if nk < capacity:
+        pad = torch.full((B, capacity - nk), SENTINEL, dtype=hs.dtype, device=hs.device)
+        hs = torch.cat([hs, pad], dim=1)
+    else:
+        hs = hs[:, :capacity].contiguous()
+    mask = hs != SENTINEL
+    n_overflow = torch.clamp(n_unique - capacity, min=0).sum()
+    return hs, mask, n_overflow

@@ -1,0 +1,51 @@
+"""Row sort K4 of the PyTorch port against the Pallas bitonic row sort.
+
+The Pallas kernel runs in interpret mode on the CPU; the port's wrapper
+runs its plain version there.  Both must be bit-equal to each other.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from sketch_rna_tpu.match.pallas_sort import bitonic_row_sort
+from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def _rows(seed, W, B=16):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(I32_MIN, I32_MAX, size=(B, W), endpoint=True).astype(np.int32)
+    x[0] = rng.integers(0, 3, size=W)  # heavy duplicates
+    x[1, ::2] = I32_MIN  # extremes
+    x[1, 1::2] = I32_MAX
+    x[2] = np.arange(W)[::-1]  # descending
+    return x
+
+
+@pytest.mark.parametrize("W", [8, 64, 256])
+def test_plain_row_sort_equals_pallas(W):
+    x = _rows(W, W)
+    want = np.asarray(bitonic_row_sort(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(row_sort_plain(torch.from_numpy(x)).numpy(), want)
+    before = row_sort.launches
+    np.testing.assert_array_equal(row_sort(torch.from_numpy(x)).numpy(), want)
+    assert row_sort.launches == before  # a CPU tensor launches no kernel
+
+
+@pytest.mark.parametrize(
+    "x,err",
+    [
+        (torch.zeros((4, 12), dtype=torch.int32), ValueError),  # not a power of two
+        (torch.zeros((4, 1), dtype=torch.int32), ValueError),  # below the narrowest row
+        (torch.zeros((1, 1 << 15), dtype=torch.int32), ValueError),  # past 64 KB of shared memory
+        (torch.zeros((4, 8), dtype=torch.int64), TypeError),
+        (torch.zeros(8, dtype=torch.int32), ValueError),
+        (torch.zeros((8, 4), dtype=torch.int32).t(), ValueError),  # not contiguous
+    ],
+)
+def test_row_sort_rejects_bad_input(x, err):
+    with pytest.raises(err):
+        row_sort(x)
