@@ -44,6 +44,10 @@ class QuantConfig:
     # EM / assignment accumulation dtype: "float64" reproduces the
     # reference's C++ double math; "float32" is the fast mode.
     em_dtype: str = "float32"
+    # K > 1 grouping mode: True = per-k top-2C tables intersected (a batch
+    # whose per-k table spills is regrouped merged); False = the merged
+    # K-wide event grouping for every batch (truncates only the final set).
+    match_per_k_tables: bool = True
 
     def sketch_capacity_for(self, k: int, read_len: Optional[int] = None) -> int:
         """Auto-size sketch capacity from the padded read length (or an

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in csrc/.
 
-nvcc compiles every csrc/*.cu into one shared library with a plain C
+One nvcc per csrc/*.cu, all started together, compiles the sources to
+objects; one more links them into a shared library with a plain C
 interface, loaded with ctypes.  No source includes PyTorch's headers, so
 the build takes seconds rather than the minutes a torch extension needs.
 It runs at the first CUDA use, into build/kernels/ beside the package,
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills in the build log
 )
 
@@ -39,8 +41,14 @@ _SIGNATURES = {
     # codes, lengths, tables, out_hashes, out_mask, out_overflow,
     # B, L, k, threshold, cap, nk_pad, stream
     "fused_sketch_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _I, _P],
+    # codes, lengths, num_k, ks, caps, nk_pads, tables, out_hashes,
+    # out_masks, out_overflows (host arrays of num_k), B, L, threshold, stream
+    "fused_sketch_multik_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint, _P],
+    # codes, lengths, tables, out, B, L, k, threshold, stream
+    "nthash_sketch_launch": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _P],
     # x, out, B, W, stream
     "row_sort_launch": [_P, _P, _I, _I, _P],
+    "row_sort_i64_launch": [_P, _P, _I, _I, _P],
 }
 
 
@@ -76,15 +84,31 @@ def build() -> Build:
     if so.exists():
         return Build(so, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
-    return Build(so, seconds, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for obj, proc in procs:  # wait for every compile, failed or not
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"{obj.stem}.cu ({proc.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_so), *(str(obj) for obj, _ in procs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+        os.replace(tmp_so, so)  # atomic: a concurrent loader never sees a partial file
+    return Build(so, time.perf_counter() - t0, log)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,11 @@
 """Wrapper of the row sort kernel K4 (csrc/row_sort.cu).
 
-`row_sort` sorts every row of a [B, W] int32 tensor ascending, W a power
-of two from 2 to 16384.  On a CUDA tensor it launches the hand-written
-bitonic kernel (or raises); on a CPU tensor it runs the plain version,
-`row_sort_plain`.
+`row_sort` sorts every row of a [B, W] int32 or int64 tensor ascending,
+W a power of two from 2 to 16384.  On a CUDA tensor it launches the
+hand-written bitonic kernel for that key type (or raises); on a CPU
+tensor it runs the plain version, `row_sort_plain`.  The int64 instance
+is the key+payload sort: a (key << 32) | payload row sorts exactly as
+(key, payload) when both halves fit in 32 bits.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ import torch
 from sketch_rna_tpu_torch import kernels
 
 MIN_WIDTH = 2
-MAX_WIDTH = 1 << 14  # 64 KB of shared memory per row
+MAX_WIDTH = 1 << 14  # 64 KB of shared memory per int32 row, 128 KB per int64 row
+
+_LAUNCH = {torch.int32: "row_sort_launch", torch.int64: "row_sort_i64_launch"}
 
 
 def row_sort_plain(x: torch.Tensor) -> torch.Tensor:
@@ -22,9 +26,9 @@ def row_sort_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def row_sort(x: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of every row of x ([B, W] int32, W a power of two)."""
-    if x.dtype != torch.int32:
-        raise TypeError(f"row_sort takes int32, got {x.dtype}")
+    """Ascending sort of every row of x ([B, W] int32 or int64, W a power of two)."""
+    if x.dtype not in _LAUNCH:
+        raise TypeError(f"row_sort takes int32 or int64, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"row_sort takes [B, W], got {tuple(x.shape)}")
     B, W = x.shape
@@ -40,16 +44,22 @@ def row_sort(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     out = torch.empty_like(x)
     if B:
-        err = kernels.library().row_sort_launch(
+        name = _LAUNCH[x.dtype]
+        err = getattr(kernels.library(), name)(
             x.data_ptr(),
             out.data_ptr(),
             B,
             W,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-        kernels.check(err, "row_sort")
-        row_sort.launches += 1
+        kernels.check(err, name)
+        if x.dtype == torch.int32:
+            row_sort.launches += 1
+        else:
+            row_sort.launches_i64 += 1
     return out
 
 
-row_sort.launches = 0  # kernel launches since the last reset
+# Kernel launches since the last reset, per key type.
+row_sort.launches = 0
+row_sort.launches_i64 = 0

@@ -1,14 +1,18 @@
-"""Single-k quantification: sketch -> match -> classes -> EM -> CSV.
+"""Quantification: sketch -> match -> classes -> EM -> CSV, one k or several.
 
 Mirrors the JAX package's fused engine (pipeline._quantify_fused,
 src/main.cpp:165-197 in the reference):
 
   - reads group by padded length exactly as pipeline._match_tables does
     (power-of-two pads >= 256, each group's codes cut to its longest
-    read rounded up to 8), so sketch capacities agree with the JAX run;
-  - each batch of `batch_size` reads is sketched (kernel K1), probed,
-    expanded into one event row per read and grouped into top-C
-    candidates (kernel K4 twice) — match/rowmatch.py;
+    read rounded up to 8, and to at least the largest k), so sketch
+    capacities agree with the JAX run;
+  - each batch of `batch_size` reads is sketched for every k (kernels
+    K1/K2, or K3 + K4 for reads past 1024 windows; sketch/dispatch.py),
+    probed, expanded into one event row per read and k, and grouped into
+    top-C candidates (kernel K4) — match/rowmatch.py.  Several ks group
+    per k and intersect; a batch where a per-k table spilled is grouped
+    again in merged mode, which truncates only the final set;
   - the [N, C] tables narrow to the widest candidate set, collapse into
     equivalence classes (when N >= 1024, as in the JAX engine), and run
     the EM + soft assignment;
@@ -24,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,17 +36,18 @@ import torch
 from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.em.classes import build_class_tables
 from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
-from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch
-from sketch_rna_tpu_torch.index.artifact import DeviceIndex, DeviceKIndex
+from sketch_rna_tpu_torch.index.artifact import DeviceIndex
 from sketch_rna_tpu_torch.io.packing import PackedReads
 from sketch_rna_tpu_torch.match.probe import probe
 from sketch_rna_tpu_torch.match.row_sort import row_sort
 from sketch_rna_tpu_torch.match.rowmatch import (
     MatchResult,
+    event_sizes,
+    group_event_parts,
     pow2ceil,
-    row_events_to_candidates,
     row_expand_from_runs,
 )
+from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 
 log = logging.getLogger(__name__)
 
@@ -50,7 +55,12 @@ log = logging.getLogger(__name__)
 # beyond this the JAX package streams (stream.py), which is not ported.
 FUSED_MAX_PADDED_READS = 1 << 21
 
-STAT_KEYS = ("sketch_overflow", "expand_dropped", "candidate_spilled")
+# Lost work: nonzero means the result differs from the reference's.
+LOSS_KEYS = ("sketch_overflow", "expand_dropped", "candidate_spilled")
+# candidate_spilled_per_k counts per-k table spills before the
+# intersection; every batch with one is regrouped in merged mode, so it
+# costs time, not exactness.
+STAT_KEYS = LOSS_KEYS + ("candidate_spilled_per_k",)
 
 
 @dataclasses.dataclass
@@ -92,35 +102,40 @@ def _fold_ok(config: QuantConfig, num_transcripts: int) -> bool:
 def sketch_match_step(
     codes: torch.Tensor,
     lengths: torch.Tensor,
-    kindex: DeviceKIndex,
+    index: DeviceIndex,
+    config: QuantConfig,
+    sketch_caps: Sequence[int],
     *,
-    k: int,
-    sketch_fraction: float,
-    sketch_cap: int,
-    chain_fraction: float,
-    candidate_capacity: int,
-    num_transcripts: int,
-    sketch: Callable = fused_sketch,
+    sketch: Callable = sketch_reads,
     sort: Callable[[torch.Tensor], torch.Tensor] = row_sort,
 ) -> MatchResult:
-    """One batch: sketch, probe, expand, group into top-C candidates.
+    """One batch: sketch every k of the index, probe, expand, group into
+    top-C candidates (config.match_per_k_tables picks the K > 1 mode).
 
-    sketch / sort: kernels K1 / K4 by default; their plain versions
-    (sketch_batch, row_sort_plain) check them on the same batch.
-    Stats: sketch_overflow, expand_dropped, candidate_spilled.
+    sketch / sort: the kernels by default (sketch_reads, K4); their plain
+    versions (sketch_all_k, row_sort_plain) check them on the same batch.
+    Stats: sketch_overflow and expand_dropped summed over ks,
+    candidate_spilled, candidate_spilled_per_k.
     """
-    hashes, mask, sketch_overflow = sketch(codes, lengths, k, sketch_fraction, sketch_cap)
-    start, length = probe(hashes, mask, kindex.keys, kindex.row_ptr)
-    key, dropped = row_expand_from_runs(start, length, kindex.postings)
-    res = row_events_to_candidates(
-        key,
-        chain_fraction=chain_fraction,
-        candidate_capacity=candidate_capacity,
-        num_transcripts=num_transcripts,
+    ks = tuple(index.kmer_lengths)
+    sketches = sketch(codes, lengths, ks, config.sketch_fraction, sketch_caps)
+    runs = [probe(h, m, index.per_k[k].keys, index.per_k[k].row_ptr) for (h, m, _), k in zip(sketches, ks)]
+    sizes = event_sizes([length for _, length in runs])  # the batch's one host sync
+    parts, dropped = [], []
+    for (start, length), k, size in zip(runs, ks, sizes):
+        key, d = row_expand_from_runs(start, length, index.per_k[k].postings, sizes=size)
+        parts.append(key)
+        dropped.append(d)
+    res = group_event_parts(
+        parts,
+        chain_fraction=config.chain_fraction,
+        candidate_capacity=config.candidate_capacity,
+        num_transcripts=index.num_transcripts,
+        per_k_tables=config.match_per_k_tables,
         sort=sort,
     )
-    res.stats["sketch_overflow"] = sketch_overflow
-    res.stats["expand_dropped"] = dropped
+    res.stats["sketch_overflow"] = sum(ov for _, _, ov in sketches)
+    res.stats["expand_dropped"] = sum(dropped)
     return res
 
 
@@ -128,43 +143,45 @@ def _match_tables(index: DeviceIndex, packed: PackedReads, config: QuantConfig):
     """Candidate tables of every read, grouped by padded length as the
     JAX engine groups them.  Returns (tid [N, C] int32, score [N, C]
     int32, padded row count of the JAX engine, stats of 0-d tensors)."""
-    (k,) = index.kmer_lengths
-    kindex = index.per_k[k]
+    ks = tuple(index.kmer_lengths)
     dev = index.device
     B = config.batch_size
     lengths_np = np.asarray(packed.lengths)
     pad_of = np.maximum(256, 1 << np.ceil(np.log2(np.maximum(lengths_np, 1))).astype(np.int64))
     pads = np.minimum(pad_of, max(int(packed.padded_len), 256))
     unique_pads = sorted(set(pads.tolist()))
-    tids, scores = [], []
-    stats = {key: torch.zeros((), dtype=torch.int64, device=dev) for key in STAT_KEYS}
+    results: List[MatchResult] = []
+    batches = []  # (codes, lengths, caps) of each result, to regroup it
     n_padded = 0
     for pad in unique_pads:
         rows = slice(None) if len(unique_pads) == 1 else np.flatnonzero(pads == pad)
         n_rows = int(lengths_np[rows].size)
         width = min(pad, packed.padded_len)
-        l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), k), 8))
+        l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), max(ks)), 8))
         codes = torch.from_numpy(np.ascontiguousarray(packed.codes[rows, :l_eff])).to(dev)
         lengths = torch.from_numpy(lengths_np[rows].astype(np.int32)).to(dev)
-        cap = config.sketch_capacity_for(k, l_eff)
+        caps = tuple(config.sketch_capacity_for(k, l_eff) for k in ks)
         n_padded += _round_up(n_rows, B)
         for b0 in range(0, n_rows, B):
-            res = sketch_match_step(
-                codes[b0 : b0 + B],
-                lengths[b0 : b0 + B],
-                kindex,
-                k=k,
-                sketch_fraction=config.sketch_fraction,
-                sketch_cap=cap,
-                chain_fraction=config.chain_fraction,
-                candidate_capacity=config.candidate_capacity,
-                num_transcripts=index.num_transcripts,
-            )
-            tids.append(res.tid)
-            scores.append(res.score)
-            for key in STAT_KEYS:
-                stats[key] += res.stats[key]
-    return torch.cat(tids), torch.cat(scores), n_padded, stats
+            c, n = codes[b0 : b0 + B], lengths[b0 : b0 + B]
+            results.append(sketch_match_step(c, n, index, config, caps))
+            batches.append((c, n, caps))
+    if len(ks) > 1 and config.match_per_k_tables:
+        # A per-k table that spilled makes its batch's intersection
+        # inexact: group those batches again as merged K-wide rows, which
+        # give the tables of the JAX engine's whole-run merged rerun.
+        spilled = torch.stack([r.stats["candidate_spilled_per_k"] for r in results]).tolist()
+        merged = dataclasses.replace(config, match_per_k_tables=False)
+        for i in np.flatnonzero(spilled):
+            c, n, caps = batches[i]
+            redo = sketch_match_step(c, n, index, merged, caps)
+            redo.stats["candidate_spilled_per_k"] = results[i].stats["candidate_spilled_per_k"]
+            results[i] = redo
+        if any(spilled):
+            log.info("per-k candidate tables spilled in %d of %d batches; regrouped them merged",
+                     int(np.count_nonzero(spilled)), len(results))
+    stats = {key: sum(r.stats[key] for r in results) for key in STAT_KEYS}
+    return torch.cat([r.tid for r in results]), torch.cat([r.score for r in results]), n_padded, stats
 
 
 def _empty_result(index: DeviceIndex) -> QuantResult:
@@ -190,8 +207,6 @@ def quantify(
     """Full quant on the index's device: sketch -> match -> EM ->
     assignment (src/main.cpp:165-197)."""
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
-    if len(index.kmer_lengths) != 1:
-        raise NotImplementedError("multi-k quant: ROADMAP Queue 1 item 8")
     R = packed.num_reads
     if R == 0:
         return _empty_result(index)
@@ -208,9 +223,9 @@ def quantify(
     t0 = time.perf_counter()
     tbl_tid, tbl_score, n_padded, stats = _match_tables(index, packed, config)
     host_stats = {key: int(v) for key, v in stats.items()}
-    for key, v in host_stats.items():
-        if v:
-            log.warning("capacity overflow during matching: %s=%d", key, v)
+    for key in LOSS_KEYS:
+        if host_stats[key]:
+            log.warning("capacity overflow during matching: %s=%d", key, host_stats[key])
     timing["match"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

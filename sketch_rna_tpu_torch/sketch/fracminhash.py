@@ -1,5 +1,7 @@
 """FracMinHash sketching: threshold filter + set-dedup — the plain
-PyTorch version of the fused sketch kernel (hash/sketch_kernel.py).
+PyTorch versions of the sketch kernels: `sketch_batch` of K1,
+`sketch_all_k` of K2 (hash/sketch_kernel.py) and `hash_plane` of K3
+(hash/hash_kernel.py).
 
 Reference semantics (createSketch_FracMinhash_direct, src/sketch.cpp:24-39):
   threshold = (uint32_t)(UINT32_MAX * fraction)      [C cast truncates]
@@ -15,12 +17,13 @@ holds keeps the numerically smallest and counts the rest, never silent.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32
+from sketch_rna_tpu_torch.match.row_sort import row_sort_plain
 
 SENTINEL = 0xFFFFFFFF
 
@@ -40,6 +43,16 @@ def fracminhash_threshold(fraction: float) -> int:
     return int(float(np.float64(0xFFFFFFFF) * f))  # truncates
 
 
+def hash_plane(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: float) -> torch.Tensor:
+    """[B, L-k+1] int64: the hash of every window that lies inside its
+    read and passes the threshold, SENTINEL elsewhere."""
+    h = nthash_batch_u32(codes, k)  # [B, nk]
+    pos = torch.arange(h.shape[1], dtype=torch.int64, device=h.device)
+    pos_ok = pos[None, :] < (lengths.long()[:, None] - (k - 1))
+    keep = pos_ok & (h <= fracminhash_threshold(fraction))
+    return torch.where(keep, h, SENTINEL)
+
+
 def sketch_batch(
     codes: torch.Tensor,
     lengths: torch.Tensor,
@@ -54,27 +67,38 @@ def sketch_batch(
     mask [B, capacity] bool, n_overflow [] int64 — distinct kept hashes
     dropped for exceeding capacity across the batch).
     """
-    h = nthash_batch_u32(codes, k)  # [B, nk]
-    nk = h.shape[1]
-    pos = torch.arange(nk, dtype=torch.int64, device=h.device)
-    pos_ok = pos[None, :] < (lengths.long()[:, None] - (k - 1))
-    keep = pos_ok & (h <= fracminhash_threshold(fraction))
-    return dedup_select(torch.where(keep, h, SENTINEL), capacity)
+    return dedup_select(hash_plane(codes, lengths, k, fraction), capacity)
 
 
-def dedup_select(hs: torch.Tensor, capacity: int):
+def sketch_all_k(
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    ks: Sequence[int],
+    fraction: float,
+    caps: Sequence[int],
+) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """sketch_batch for every k: [(hashes, mask, n_overflow)] per k."""
+    return [sketch_batch(codes, lengths, k, fraction, cap) for k, cap in zip(ks, caps)]
+
+
+def dedup_select(
+    hs: torch.Tensor,
+    capacity: int,
+    sort: Callable[[torch.Tensor], torch.Tensor] = row_sort_plain,
+):
     """Sort each row, drop duplicates, compact with a second sort, and
     take the first `capacity` distinct values.
 
-    hs: [B, nk] int64 with the sentinel on discarded lanes.  Returns
-    (hashes, mask, n_overflow) exactly as sketch_batch documents.
+    hs: [B, nk] int64 with the sentinel on discarded lanes.  sort: the
+    row sort (the long-read path passes kernel K4 with nk a power of
+    two).  Returns (hashes, mask, n_overflow) exactly as sketch_batch
+    documents.
     """
     B, nk = hs.shape
-    hs = torch.sort(hs, dim=-1).values
+    hs = sort(hs)
     dup = torch.zeros_like(hs, dtype=torch.bool)
     dup[:, 1:] = hs[:, 1:] == hs[:, :-1]
-    hs = torch.where(dup & (hs != SENTINEL), SENTINEL, hs)
-    hs = torch.sort(hs, dim=-1).values
+    hs = sort(torch.where(dup & (hs != SENTINEL), SENTINEL, hs))
     n_unique = (hs != SENTINEL).sum(dim=1)
     if nk < capacity:
         pad = torch.full((B, capacity - nk), SENTINEL, dtype=hs.dtype, device=hs.device)

@@ -82,17 +82,7 @@ def test_candidate_tables_equal_jax(problem):
     assert int(np.asarray(jst["expand_dropped"]).sum()) == 0
 
     dev = to_device(idx, "cpu")
-    res = sketch_match_step(
-        torch.from_numpy(codes),
-        torch.from_numpy(lengths),
-        dev.per_k[K],
-        k=K,
-        sketch_fraction=cfg.sketch_fraction,
-        sketch_cap=cap,
-        chain_fraction=cfg.chain_fraction,
-        candidate_capacity=cfg.candidate_capacity,
-        num_transcripts=idx.num_transcripts,
-    )
+    res = sketch_match_step(torch.from_numpy(codes), torch.from_numpy(lengths), dev, cfg, (cap,))
     np.testing.assert_array_equal(res.mask.numpy(), jm)
     np.testing.assert_array_equal(res.tid.numpy(), np.where(jm, jt, 0))
     np.testing.assert_array_equal(res.score.numpy(), np.where(jm, js, 0))

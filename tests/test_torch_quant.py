@@ -94,7 +94,8 @@ def test_no_reads_writes_header_only_csv(problem, tmp_path):
 def test_cli_sample_csv_is_byte_identical(tmp_path):
     idx = str(tmp_path / "sample.npz")
     out = str(tmp_path / "sample.csv")
-    assert port_cli(["-o", "index", "-k", "31", os.path.join(EXAMPLES, "sample.fa"), idx]) == 0
-    assert port_cli(["-o", "quant", "--em-dtype", "float64", idx, os.path.join(EXAMPLES, "sample.fq"), out]) == 0
+    assert port_cli(["-o", "index", "--device", "cpu", "-k", "31", os.path.join(EXAMPLES, "sample.fa"), idx]) == 0
+    assert port_cli(["-o", "quant", "--device", "cpu", "--em-dtype", "float64", idx,
+                     os.path.join(EXAMPLES, "sample.fq"), out]) == 0
     with open(out) as a, open(os.path.join(EXAMPLES, "sample.expected.csv")) as b:
         assert a.read() == b.read()

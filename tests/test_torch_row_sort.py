@@ -41,7 +41,7 @@ def test_plain_row_sort_equals_pallas(W):
         (torch.zeros((4, 12), dtype=torch.int32), ValueError),  # not a power of two
         (torch.zeros((4, 1), dtype=torch.int32), ValueError),  # below the narrowest row
         (torch.zeros((1, 1 << 15), dtype=torch.int32), ValueError),  # past 64 KB of shared memory
-        (torch.zeros((4, 8), dtype=torch.int64), TypeError),
+        (torch.zeros((4, 8), dtype=torch.int16), TypeError),
         (torch.zeros(8, dtype=torch.int32), ValueError),
         (torch.zeros((8, 4), dtype=torch.int32).t(), ValueError),  # not contiguous
     ],
