@@ -27,7 +27,27 @@ without printing its result line:
                 equal to a forced merged run;
   long-reads    2,000 synthetic transcripts (families of 3-8 kb) + 100,000
                 reads of 2,000 bp from those that hold one, k=31: reads past
-                1024 windows sketch through K3 + K4-int64 alone.
+                1024 windows sketch through K3 + K4-int64 alone; then
+                2,000 reads of 20,000 bp (nk_pad 32768) at k=31, whose dedup
+                sorts through row_sort_wide (K4-int64 chunks + merges);
+  stream        the scale-multik index and reads at float64 EM: the
+                streamed engine (default knobs; a 2^16-row class buffer that
+                compacts and drains; one full-width buffer) equals the fused
+                run within 1e-9 relative;
+  stream-c3     BASELINE config 3 at its published size: 10,000,000 x 100 bp
+                reads against the 20,000-transcript stand-in, k=(21, 31),
+                streamed from 2-bit chunks made chunk by chunk, float32 EM;
+  cli-stream    the CLI's quant on a 2,200,000-read FASTQ: past the fused
+                bound it must take the streamed route over the native scan
+                feed (the Python feed, said so, if the native parser cannot
+                build); the CSV equals in-process quantify_streamed;
+  samples       examples/sample.{fa,fq}: refbin and npz indexes, a
+                two-sample quant with --tpm (TPM = numpy recompute), and an
+                EM checkpoint stopped after 2 iterations and resumed, equal
+                to the one-shot run byte for byte.
+
+With --profile, one steady streamed quant of the scale-multik reads runs
+under torch.profiler last: device busy / idle share and time by item.
 
 A scale phase builds its index on the card, runs one warm-up and one
 timed quant (reads/s, stage seconds), counts kernel launches over the
@@ -60,7 +80,11 @@ BATCH = 8192
 SCALE = (6000, 1_000_000)
 SCALE_MULTIK = (20000, 1 << 21)
 LONG_READS = (2000, 100_000)
-PHASES = ("kernels", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads")
+VERY_LONG = (200, 2000, 20000)  # (transcripts, reads, read length)
+C3_READS = 10_000_000
+CLI_READS = 2_200_000
+PHASES = ("kernels", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads", "stream",
+          "stream-c3", "cli-stream", "samples")
 KERNELS = {
     "K1": ("fused_sketch", "sketch_rna_tpu_torch/csrc/sketch.cu", "sketch_rna_tpu/hash/pallas_hash.py:160"),
     "K2": ("fused_sketch_multik", "sketch_rna_tpu_torch/csrc/sketch.cu", "sketch_rna_tpu/hash/pallas_hash.py:266"),
@@ -177,7 +201,7 @@ def phase_kernels(torch, results):
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
-    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
+    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain, row_sort_wide
     from sketch_rna_tpu_torch.sketch.fracminhash import hash_plane, sketch_all_k, sketch_batch
 
     rng = np.random.default_rng(SEED)
@@ -245,6 +269,18 @@ def phase_kernels(torch, results):
             ms, plain_ms = time_pair_ms(torch, lambda: row_sort(x), lambda: row_sort_plain(x))
             print(f"[kernels] {name} B={BATCH} W={W}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             del x, got, want
+    # row_sort_wide: K4-int64 over 16384-lane chunks + bitonic merges in torch.
+    for B, W in ((BATCH, 1 << 15), (1024, 1 << 16)):
+        x = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, size=(B, W), endpoint=True, dtype=np.int64)).to(DEVICE)
+        x[:16] = torch.from_numpy(rng.integers(0, 3, size=(16, W)).astype(np.int64)).to(DEVICE)
+        got, want = row_sort_wide(x), row_sort_plain(x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"row_sort_wide differs from torch.sort at [{B}, {W}]")
+        del got, want
+        ms, plain_ms = time_pair_ms(torch, lambda: row_sort_wide(x), lambda: row_sort_plain(x), reps=5)
+        print(f"[kernels] row_sort_wide int64 [{B}, {W}]: bit-equal, K4-int64 chunks + merges {ms:.4f} ms, "
+              f"torch.sort {plain_ms:.4f} ms")
+        del x
 
 
 def _csv_rows(path):
@@ -299,7 +335,8 @@ def _records(seqs, prefix):
 
 
 def _timed_quant(torch, tag, index, packed, config, n_reads):
-    """Warm-up + timed quant; returns (result, seconds, launches of the timed run)."""
+    """Warm-up + timed quant; returns (result, seconds, launches of the timed
+    run, its peak device memory in bytes)."""
     import numpy as np
 
     from sketch_rna_tpu_torch.pipeline import quantify
@@ -308,14 +345,17 @@ def _timed_quant(torch, tag, index, packed, config, n_reads):
     quantify(index, packed, config)
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up quant {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     res = quantify(index, packed, config)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] quant {n_reads} reads in {quant_s:.3f} s: {n_reads / quant_s:.1f} reads/s; "
-          f"stages (s) {json.dumps({k: round(v, 4) for k, v in res.timing.items()})}")
+          f"stages (s) {json.dumps({k: round(v, 4) for k, v in res.timing.items()})}; "
+          f"peak device memory {peak} bytes")
     print(f"[{tag}] EM iterations {res.em_iterations}; mapped reads {res.num_mapped}; stats {json.dumps(res.stats)}; "
           f"launches {json.dumps(launches)}")
     require(np.isfinite(res.pi).all() and np.isfinite(res.weighted_counts).all(), "non-finite EM output")
@@ -325,7 +365,7 @@ def _timed_quant(torch, tag, index, packed, config, n_reads):
     require(res.num_mapped > 0.9 * n_reads, f"only {res.num_mapped} reads mapped")
     require(res.stats["sketch_overflow"] == 0 and res.stats["expand_dropped"] == 0,
             f"dropped work: {res.stats}")
-    return res, quant_s, launches
+    return res, quant_s, launches, peak
 
 
 def _first_batch(torch, tag, index, config, codes, lengths, L):
@@ -339,6 +379,7 @@ def _first_batch(torch, tag, index, config, codes, lengths, L):
 
     c = torch.from_numpy(np.ascontiguousarray(codes[:BATCH, :L])).to(DEVICE)
     n = torch.from_numpy(lengths[:BATCH]).to(DEVICE)
+    B = c.shape[0]
     caps = tuple(config.sketch_capacity_for(k, L) for k in index.kmer_lengths)
     sorted_rows = {torch.int32: [], torch.int64: []}
 
@@ -350,7 +391,7 @@ def _first_batch(torch, tag, index, config, codes, lengths, L):
     want = sketch_match_step(c, n, index, config, caps, sketch=sketch_all_k, sort=row_sort_plain)
     same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask"))
     require(same, f"{tag} first batch: kernel candidate tables differ from the plain functions'")
-    print(f"[{tag}] first batch [{BATCH}, {L}] caps {caps}: kernel tables == plain tables "
+    print(f"[{tag}] first batch [{B}, {L}] caps {caps}: kernel tables == plain tables "
           f"({int(got.mask.sum())} candidates)")
     return c, n, caps, sorted_rows
 
@@ -377,7 +418,7 @@ def phase_scale(torch, results):
           f"{kidx.postings.size} postings in {time.perf_counter() - t0:.3f} s on the card")
     index = to_device(artifact, DEVICE)
     codes, lengths = sample_reads(seqs, n_reads, read_len, 256, seed=SEED)
-    _, _, launches = _timed_quant(torch, "scale", index, PackedReads(codes, lengths, []), config, n_reads)
+    _, _, launches, _ = _timed_quant(torch, "scale", index, PackedReads(codes, lengths, []), config, n_reads)
     require(launches["K1"] > 0 and launches["K4"] > 0, f"the single-k path skipped a kernel: {launches}")
     require(launches["K2"] == launches["K3"] == 0, f"the single-k path ran a multi-k or long-read kernel: {launches}")
 
@@ -393,20 +434,20 @@ def phase_scale(torch, results):
            shape=f"[{BATCH}, {L}] k=31 cap {cap}")
 
 
-def phase_scale_multik(torch, results):
-    """The JAX package's bench config c3_chr20_multik (bench.py:286-289)."""
+def c3_problem(torch, ctx):
+    """The JAX package's bench config c3_chr20_multik (bench.py:286-289):
+    20,000 transcripts (synth_transcriptome, seed 22), index built on the
+    card, 2^21 reads of 100 bp (seed 22, padded to 128); built once."""
+    if "c3" in ctx:
+        return ctx["c3"]
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
-    from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch_multik
     from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.index.build import build_index
-    from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
-    from sketch_rna_tpu_torch.sketch.fracminhash import sketch_all_k
     from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
-    (n_tx, n_reads), read_len, ks = SCALE_MULTIK, 100, (21, 31)
+    (n_tx, n_reads), ks = SCALE_MULTIK, (21, 31)
     seqs = synth_transcriptome(np.random.default_rng(22), n_tx)
     config = QuantConfig(kmer_lengths=ks, batch_size=BATCH, max_read_len=128, em_dtype="float32")
     reset_launches()
@@ -414,15 +455,29 @@ def phase_scale_multik(torch, results):
     artifact = build_index(_records(seqs, "T"), config, device=DEVICE)
     build_s = time.perf_counter() - t0
     build_launches = read_launches()
-    print(f"[scale-multik] index: {n_tx} transcripts, {sum(s.size for s in seqs)} bases -> "
+    print(f"[c3] index: {n_tx} transcripts, {sum(s.size for s in seqs)} bases -> "
           + ", ".join(f"k={k}: {artifact.per_k[k].num_keys} keys, {artifact.per_k[k].postings.size} postings"
                       for k in ks)
           + f" in {build_s:.3f} s on the card; launches {json.dumps(build_launches)}")
     require(build_launches["K3"] > 0, "the index build did not hash through K3")
-    index = to_device(artifact, DEVICE)
-    codes, lengths = sample_reads(seqs, n_reads, read_len, config.max_read_len, seed=22)
-    _, _, launches = _timed_quant(torch, "scale-multik", index, PackedReads(codes, lengths, []), config,
-                                          n_reads)
+    codes, lengths = sample_reads(seqs, n_reads, 100, config.max_read_len, seed=22)
+    ctx["c3"] = dict(seqs=seqs, artifact=artifact, index=to_device(artifact, DEVICE), codes=codes,
+                     lengths=lengths, config=config)
+    return ctx["c3"]
+
+
+def phase_scale_multik(torch, results, ctx):
+    """The c3_chr20_multik stand-in cut to 2^21 reads, the fused bound."""
+    from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch_multik
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
+    from sketch_rna_tpu_torch.sketch.fracminhash import sketch_all_k
+
+    c3 = c3_problem(torch, ctx)
+    index, codes, lengths, config = c3["index"], c3["codes"], c3["lengths"], c3["config"]
+    ks, n_reads = config.kmer_lengths, lengths.size
+    _, _, launches, ctx["fused_peak_bytes"] = _timed_quant(torch, "scale-multik", index,
+                                                           PackedReads(codes, lengths, []), config, n_reads)
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
             f"the multi-k path skipped a kernel: {launches}")
 
@@ -455,7 +510,7 @@ def phase_spill(torch):
     from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.index.build import build_index
     from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.pipeline import _match_tables, quantify
+    from sketch_rna_tpu_torch.pipeline import match_rows, quantify
 
     rng = np.random.default_rng(3)
     core = rng.integers(0, 4, 80).astype(np.uint8)
@@ -468,8 +523,8 @@ def phase_spill(torch):
         codes[i, :70] = seqs[i][70:140]
     packed = PackedReads(codes, np.full(48, 70, np.int32), [])
     merged = dataclasses.replace(config, match_per_k_tables=False)
-    tid, score, _, stats = _match_tables(index, packed, config)
-    m_tid, m_score, _, m_stats = _match_tables(index, packed, merged)
+    tid, score, _, stats = match_rows(index, torch.from_numpy(codes), packed.lengths, config)
+    m_tid, m_score, _, m_stats = match_rows(index, torch.from_numpy(codes), packed.lengths, merged)
     require(int(stats["candidate_spilled_per_k"]) > 0, "the per-k tables did not spill")
     require(torch.equal(tid, m_tid) and torch.equal(score, m_score), "regrouped tables differ from the merged run")
     require(int(stats["candidate_spilled"]) == int(m_stats["candidate_spilled"]) > 0, "candidate_spilled differs")
@@ -500,7 +555,7 @@ def phase_long_reads(torch, results):
     long_enough = [s for s in seqs if s.size >= read_len]
     codes, lengths = sample_reads(long_enough, n_reads, read_len, 2048, seed=SEED + 1)
     require(int(lengths.min()) == read_len, "a long-read sample is shorter than the read length")
-    _, _, launches = _timed_quant(torch, "long-reads", index, PackedReads(codes, lengths, []), config, n_reads)
+    _, _, launches, _ = _timed_quant(torch, "long-reads", index, PackedReads(codes, lengths, []), config, n_reads)
     require(launches["K3"] > 0 and launches["K4-int64"] > 0 and launches["K1"] == 0,
             f"long reads did not sketch through K3 + K4-int64 alone: {launches}")
     L = read_len  # round_up(2000, 8)
@@ -510,12 +565,280 @@ def phase_long_reads(torch, results):
     print(f"[long-reads] main-path shape: K3 [{BATCH}, {L}] k=31: kernel {k3[0]:.4f} ms, plain {k3[1]:.4f} ms")
     record(results, "K3", launches=launches["K3"], ms=round(k3[0], 5), plain_ms=round(k3[1], 5),
            shape=f"[{BATCH}, {L}] k=31")
+    del c, n
+
+    # Reads past K4's 16384 windows: the dedup sorts through row_sort_wide.
+    n_tx, n_reads, read_len = VERY_LONG
+    seqs = synth_transcriptome(np.random.default_rng(SEED + 2), n_tx, read_len, read_len + 4000)
+    index = to_device(build_index(_records(seqs, "V"), config, device=DEVICE), DEVICE)
+    codes, lengths = sample_reads([s for s in seqs if s.size >= read_len], n_reads, read_len, read_len,
+                                  seed=SEED + 2)
+    require(int(lengths.min()) == read_len, "a very long read is shorter than the read length")
+    _, _, launches, _ = _timed_quant(torch, "very-long-reads", index, PackedReads(codes, lengths, []), config,
+                                        n_reads)
+    require(launches["K3"] > 0 and launches["K4-int64"] > 0 and launches["K1"] == 0,
+            f"20 kb reads did not sketch through K3 + K4-int64 alone: {launches}")
+    _first_batch(torch, "very-long-reads", index, config, codes, lengths, read_len)
+
+
+def _rel_diff(a, b) -> float:
+    import numpy as np
+
+    scale = np.maximum(np.abs(b), 1e-300)
+    return float(np.max(np.abs(a - b) / scale)) if a.size else 0.0
+
+
+def phase_stream(torch, ctx):
+    """The streamed engine on the card equals the fused one (float64)."""
+    import dataclasses
+
+    import numpy as np
+
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.pipeline import quantify
+    from sketch_rna_tpu_torch.stream import quantify_streamed
+
+    c3 = c3_problem(torch, ctx)
+    config = dataclasses.replace(c3["config"], em_dtype="float64")
+    packed = PackedReads(c3["codes"], c3["lengths"], [])
+    t0 = time.perf_counter()
+    fused = quantify(c3["index"], packed, config)
+    print(f"[stream] fused float64 quant of {packed.num_reads} reads: {time.perf_counter() - t0:.3f} s, "
+          f"{fused.em_iterations} EM iterations")
+    variants = {
+        "default knobs": config,
+        "class buffer 2^16 rows": dataclasses.replace(config, stream_class_capacity=1 << 16),
+        "one full-width buffer": dataclasses.replace(config, stream_narrow_width=0),
+    }
+    for name, cfg in variants.items():
+        t0 = time.perf_counter()
+        res = quantify_streamed(c3["index"], packed, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = res.stats
+        rel = max(_rel_diff(res.pi, fused.pi), _rel_diff(res.weighted_counts, fused.weighted_counts))
+        print(f"[stream] {name}: {secs:.3f} s, {st['stream_classes']} classes, {st['stream_compactions']} "
+              f"compactions, {st['stream_drains']} drains, class_overflow {st['class_overflow']}, "
+              f"wide_spilled {st['wide_spilled']}; max relative difference to fused {rel:.3g}")
+        require(np.array_equal(res.has_entry, fused.has_entry), f"streamed ({name}) CSV rows differ from fused")
+        require(res.em_iterations == fused.em_iterations, f"streamed ({name}) EM iterations differ")
+        require(rel <= 1e-9, f"streamed ({name}) differs from fused by {rel} relative")
+        require(st["class_overflow"] == 0 and st["wide_spilled"] == 0, f"streamed ({name}) dropped classes")
+        if cfg.stream_class_capacity == 1 << 16:
+            require(st["stream_drains"] > 0, "the 2^16-row class buffer never drained")
+
+
+def _c3_chunks(seqs, n_reads, chunk, seed):
+    """2-bit chunks of 100 bp reads, made chunk by chunk from seed + c."""
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.utils.synth import sample_reads
+
+    for c, r0 in enumerate(range(0, n_reads, chunk)):
+        codes, lengths = sample_reads(seqs, min(chunk, n_reads - r0), 100, 104, seed=seed + c)
+        yield PackedReads(codes, lengths, []).bit_packed()
+
+
+def phase_stream_c3(torch, ctx):
+    """BASELINE config 3 at 10M reads through the streamed engine."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.stream import quantify_streamed
+
+    c3 = c3_problem(torch, ctx)
+    index, config, seqs = c3["index"], c3["config"], c3["seqs"]
+    chunk = config.stream_chunk_reads
+    t0 = time.perf_counter()
+    quantify_streamed(index, _c3_chunks(seqs, chunk, chunk, 7000), config, num_reads_hint=chunk)
+    torch.cuda.synchronize()
+    print(f"[stream-c3] warm-up: {chunk} reads streamed in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = quantify_streamed(index, _c3_chunks(seqs, C3_READS, chunk, 9000), config, num_reads_hint=C3_READS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    st = res.stats
+    print(f"[stream-c3] quant {C3_READS} reads in {secs:.3f} s: {C3_READS / secs:.1f} reads/s (feed made on the "
+          f"host inside the timing); stages (s) {json.dumps({k: round(v, 4) for k, v in res.timing.items()})}")
+    print(f"[stream-c3] {st['stream_classes']} classes, {st['stream_compactions']} compactions, "
+          f"{st['stream_drains']} drains; stats {json.dumps(st)}; EM iterations {res.em_iterations}; "
+          f"mapped reads {res.num_mapped}; launches {json.dumps(launches)}")
+    print(f"[stream-c3] peak device memory {peak} bytes (fused 2^21-read run: {ctx.get('fused_peak_bytes')})")
+    require(res.num_reads == C3_READS, f"{res.num_reads} reads quantified")
+    require(np.isfinite(res.pi).all() and np.isfinite(res.weighted_counts).all(), "non-finite EM output")
+    for key in ("sketch_overflow", "expand_dropped", "candidate_spilled", "class_overflow", "wide_spilled"):
+        require(st[key] == 0, f"stream-c3 lost work: {key}={st[key]}")
+    total = float(res.weighted_counts[res.has_entry].sum())
+    require(abs(total - res.num_mapped) <= 1e-3 * res.num_mapped,
+            f"sum of NumReads {total} != reads with a candidate {res.num_mapped}")
+    require(res.num_mapped > 0.9 * C3_READS, f"only {res.num_mapped} reads mapped")
+    require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
+            f"the streamed multi-k path skipped a kernel: {launches}")
+
+
+def _write_fastq(path, codes, lengths):
+    """Fixed-width FASTQ records, written with numpy: @r<9 digits>, the
+    read, +, a quality line of I."""
+    import numpy as np
+
+    n, L = codes.shape[0], int(lengths[0])
+    require(bool((lengths == L).all()), "the FASTQ writer takes reads of one length")
+    head = np.frombuffer(b"".join(b"@r%09d\n" % i for i in range(n)), np.uint8).reshape(n, 12)
+    rec = np.empty((n, 12 + L + 3 + L + 1), np.uint8)
+    rec[:, :12] = head
+    rec[:, 12 : 12 + L] = np.frombuffer(b"ACGT", np.uint8)[codes[:, :L]]
+    rec[:, 12 + L : 15 + L] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, 15 + L : 15 + 2 * L] = ord("I")
+    rec[:, -1] = ord("\n")
+    with open(path, "wb") as fh:
+        fh.write(rec.tobytes())
+
+
+def phase_cli_stream(torch, ctx):
+    """The CLI past the fused bound: the streamed route over the native scan."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from sketch_rna_tpu_torch.cli import main as cli
+    from sketch_rna_tpu_torch.index.artifact import save_index
+    from sketch_rna_tpu_torch.io import native
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.stream import quantify_streamed
+    from sketch_rna_tpu_torch.utils.synth import sample_reads
+
+    c3 = c3_problem(torch, ctx)
+    t0 = time.perf_counter()
+    has_native = native.native_available()
+    print(f"[cli-stream] native FASTQ parser: {'built' if has_native else 'DID NOT BUILD'} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    extra = [] if has_native else ["--no-native"]
+    if not has_native:
+        print("[cli-stream] make -C native failed on this machine: running the CLI with --no-native "
+              "(the Python parser's whole-file pack, then the streamed engine)")
+    codes, lengths = sample_reads(c3["seqs"], CLI_READS, 100, 104, seed=31)
+    with tempfile.TemporaryDirectory() as tmp:
+        fq, idx, out = (os.path.join(tmp, n) for n in ("reads.fq", "c3.npz", "out.csv"))
+        t0 = time.perf_counter()
+        _write_fastq(fq, codes, lengths)
+        save_index(idx, c3["artifact"])
+        print(f"[cli-stream] wrote {CLI_READS} reads ({os.path.getsize(fq)} bytes) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli(["-o", "quant", *extra, idx, fq, out])
+        secs = time.perf_counter() - t0
+        route = [line for line in err.getvalue().splitlines() if line.startswith("quant route:")]
+        print(f"[cli-stream] CLI quant in {secs:.3f} s ({CLI_READS / secs:.1f} reads/s, parse included): {route}")
+        require(rc == 0, f"CLI quant failed: {err.getvalue()[-2000:]}")
+        want = f"quant route: streamed, feed: {'native-scan' if has_native else 'python'}"
+        require(route == [want], f"the CLI took another route: {route}, expected {want!r}")
+        got = _csv_rows(out)
+    ref = quantify_streamed(c3["index"], PackedReads(codes, lengths, []), c3["config"])
+    want_rows = {ref.names[t]: (float(ref.weighted_counts[t]), float(ref.pi[t]))
+                 for t in np.flatnonzero(ref.has_entry)}
+    require(got.keys() == want_rows.keys(), f"CLI CSV rows ({len(got)}) != in-process rows ({len(want_rows)})")
+    rel = max(abs(x - y) / max(abs(y), 1e-9) for n in got for x, y in zip(got[n], want_rows[n]))
+    require(rel <= 1e-4, f"CLI CSV differs from in-process quantify_streamed by {rel} relative")
+    print(f"[cli-stream] CSV == in-process quantify_streamed ({len(got)} rows, max rel diff {rel:.3g})")
+
+
+def phase_samples():
+    """Multi-sample, TPM, refbin and EM checkpoints on examples/."""
+    import shutil
+
+    import numpy as np
+
+    from sketch_rna_tpu_torch.cli import main as cli
+    from sketch_rna_tpu_torch.index.refbin import load_any_index
+
+    ex = ROOT / "examples"
+    expected = (ex / "sample.expected.csv").read_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        fqs = []
+        for name in ("a", "b"):
+            fqs.append(os.path.join(tmp, f"{name}.fq"))
+            shutil.copy(ex / "sample.fq", fqs[-1])
+        for fmt in ("refbin", "npz"):
+            idx = os.path.join(tmp, f"sample.{fmt}")
+            require(cli(["-o", "index", "--index-format", fmt, str(ex / "sample.fa"), idx]) == 0, f"{fmt} index failed")
+            out = os.path.join(tmp, f"{fmt}.csv")
+            require(cli(["-o", "quant", "--tpm", "--em-dtype", "float64", idx, ",".join(fqs), out]) == 0,
+                    f"multi-sample quant failed ({fmt})")
+            lengths = np.asarray(load_any_index(idx).lengths, np.float64)
+            names = load_any_index(idx).names
+            for name in ("a", "b"):
+                lines = Path(os.path.join(tmp, f"{fmt}.{name}.csv")).read_text().splitlines()
+                three = "".join(",".join(line.split(",")[:3]) + "\n" for line in lines)
+                require(three.encode() == expected, f"{fmt} sample {name}: first three columns differ from expected")
+                rows = [line.split(",") for line in lines[1:]]
+                counts = np.zeros(len(names))
+                for r in rows:
+                    counts[names.index(r[0])] = float(r[1])
+                rate = counts / np.maximum(lengths, 1.0)
+                tpm = rate / rate.sum() * 1e6
+                rel = max(abs(float(r[3]) - tpm[names.index(r[0])]) / tpm[names.index(r[0])] for r in rows)
+                require(lines[0].endswith(",TPM") and rel < 1e-5, f"TPM column off by {rel} relative")
+        idx = os.path.join(tmp, "sample.npz")
+        ckpt = os.path.join(tmp, "em.ckpt.npz")
+        base = ["-o", "quant", "--em-dtype", "float64", idx, str(ex / "sample.fq")]
+        require(cli([*base[:-2], "--em-max-iterations", "2", "--em-checkpoint", ckpt, *base[-2:],
+                     os.path.join(tmp, "killed.csv")]) == 0, "checkpointed quant failed")
+        require(cli([*base[:-2], "--em-checkpoint", ckpt, *base[-2:], os.path.join(tmp, "resumed.csv")]) == 0,
+                "resumed quant failed")
+        require(cli([*base, os.path.join(tmp, "oneshot.csv")]) == 0, "one-shot quant failed")
+        resumed = Path(os.path.join(tmp, "resumed.csv")).read_bytes()
+        require(resumed == Path(os.path.join(tmp, "oneshot.csv")).read_bytes() == expected,
+                "resumed EM CSV differs from the one-shot run")
+    print("[samples] refbin + npz indexes; two-sample --tpm quant: first three columns byte-identical to "
+          f"sample.expected.csv, TPM = recompute (max rel diff {rel:.3g}); EM stopped after 2 iterations and "
+          "resumed == one-shot, byte for byte")
+
+
+def profile_stream(torch, ctx):
+    """One steady streamed quant of the scale-multik reads under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.stream import quantify_streamed
+
+    c3 = c3_problem(torch, ctx)
+    packed = PackedReads(c3["codes"], c3["lengths"], []).bit_packed()
+    quantify_streamed(c3["index"], packed, c3["config"])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = quantify_streamed(c3["index"], packed, c3["config"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0  # before the profiler's own teardown
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0, None
+    for a, b in spans:  # union of device intervals, in microseconds
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    print(f"[profile] streamed quant of {packed.num_reads} reads: wall {wall:.4f} s traced, stages "
+          f"{json.dumps({k: round(v, 4) for k, v in res.timing.items()})}; {len(events)} device operations, "
+          f"busy {busy / 1e3:.2f} ms: idle {100 * (1 - busy / 1e6 / wall):.1f}%")
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    print(table)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES), help=f"comma list of {', '.join(PHASES)}")
-    phases = [p for p in parser.parse_args().phases.split(",") if p]
+    parser.add_argument("--profile", action="store_true",
+                        help="last, trace one steady streamed quant with torch.profiler")
+    args = parser.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         parser.error(f"unknown phases {unknown}")
@@ -537,20 +860,27 @@ def main() -> int:
     phase_build()
     results = {name: {"name": fn, "route": "cuda", "source": src, "replaces": rep}
                for name, (fn, src, rep) in KERNELS.items()}
+    ctx = {}  # data that several phases share (the c3 index and reads)
     runs = {
         "kernels": lambda: phase_kernels(torch, results),
         "sample": phase_sample,
         "sample-multik": phase_sample_multik,
         "scale": lambda: phase_scale(torch, results),
-        "scale-multik": lambda: phase_scale_multik(torch, results),
+        "scale-multik": lambda: phase_scale_multik(torch, results, ctx),
         "spill": lambda: phase_spill(torch),
         "long-reads": lambda: phase_long_reads(torch, results),
+        "stream": lambda: phase_stream(torch, ctx),
+        "stream-c3": lambda: phase_stream_c3(torch, ctx),
+        "cli-stream": lambda: phase_cli_stream(torch, ctx),
+        "samples": phase_samples,
     }
     for phase in PHASES:
         if phase in phases:
             t0 = time.perf_counter()
             runs[phase]()
             print(f"[{phase}] phase done in {time.perf_counter() - t0:.1f} s")
+    if args.profile:
+        profile_stream(torch, ctx)
     if set(phases) == set(PHASES):
         missing = [n for n, r in results.items() if not r.get("launches") or "ms" not in r]
         require(not missing, f"kernels without a main-path launch or time: {missing}")

@@ -1,16 +1,21 @@
 """sketch_rna_tpu_torch — the PyTorch/CUDA port of sketch_rna_tpu.
 
-Single-k `index` + `quant` on one NVIDIA Hopper GPU (or on the CPU,
-where every hand-written kernel runs as its plain PyTorch version).
-Module names follow the JAX package so each counterpart is easy to find:
+`index` + `quant` on one NVIDIA Hopper GPU (or on the CPU, where every
+hand-written kernel runs as its plain PyTorch version): one k or
+several, reads of any length, any number of reads.  Module names follow
+the JAX package so each counterpart is easy to find:
 
-  io/      FASTA/FASTQ parsing, validation, 2-bit codes (numpy)
-  hash/    ntHash2 window tables + the fused sketch kernel (K1)
-  sketch/  FracMinHash threshold + set dedup (K1's plain version)
-  index/   `.npz` index artifact, single-k build, transfer to the device
-  match/   index probe, posting expansion, row sort kernel (K4), top-C
-  em/      equivalence classes, EM + soft assignment
-  csrc/    CUDA C++ sources of the kernels (built lazily by kernels.py)
+  io/        FASTA/FASTQ parsing, validation, 2-bit codes (numpy), and
+             the ctypes binding of the native parser (native/fastio.cpp)
+  hash/      ntHash2 window tables + the sketch kernels (K1, K2, K3)
+  sketch/    FracMinHash threshold + set dedup (the kernels' plain versions)
+  index/     `.npz` and reference-binary index artifacts, the build,
+             transfer to the device
+  match/     index probe, posting expansion, row sort kernel (K4), top-C
+  em/        equivalence classes, EM + assignment, EM checkpoints
+  pipeline   the fused engine, routing, multi-sample, CSV
+  stream     the streamed engine past the fused bound
+  csrc/      CUDA C++ sources of the kernels (built lazily by kernels.py)
 
 The package imports torch and numpy only — never jax, and nothing from
 sketch_rna_tpu, which stays the reference the port is tested against.

@@ -49,6 +49,29 @@ class QuantConfig:
     # K-wide event grouping for every batch (truncates only the final set).
     match_per_k_tables: bool = True
 
+    # --- streaming engine (stream.py), past FUSED_MAX_PADDED_READS --------
+    # Rows of the device class buffer: bounds the DISTINCT candidate
+    # profiles held on the card at once (transcriptome ambiguity, not
+    # read count); a run's known read count bounds it further.
+    stream_class_capacity: int = 1 << 23
+    # Reads per super-chunk: one host-to-device upload, matched batch by
+    # batch and pre-deduplicated into weighted classes.
+    stream_chunk_reads: int = 1 << 20
+    # Classes with at most this many candidates live in the big buffer at
+    # this width (lossless: class rows are rank-ordered); wider ones go to
+    # a full-width side buffer.  0 = one full-width buffer.
+    stream_narrow_width: int = 16
+    # When the buffer cannot take a chunk's classes even after a
+    # compaction, drain it to the host and re-merge before the EM (exact).
+    # False drops the classes past the buffer, counted in class_overflow.
+    stream_drain: bool = True
+
+    # --- EM checkpoint / resume -------------------------------------------
+    # Save (pi, iteration) to this path every em_checkpoint_every
+    # iterations, and resume from it when it exists.
+    em_checkpoint: Optional[str] = None
+    em_checkpoint_every: int = 5
+
     def sketch_capacity_for(self, k: int, read_len: Optional[int] = None) -> int:
         """Auto-size sketch capacity from the padded read length (or an
         explicit per-bucket width)."""

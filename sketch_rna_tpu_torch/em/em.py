@@ -11,16 +11,19 @@ exactly as sketch_rna_tpu/em/em.py does:
   stop     when sum |pi' - pi| < convergence threshold, or at
            max_iterations.
 
-Rows may carry a multiplicity `weight` (equivalence classes,
-em/classes.py); `static_base` adds folded single-candidate classes.
-Sums use `index_add_`; on CUDA its atomics add in a varying order, so
-float64 results may move in the last ulp between runs.  Convergence is
-tested on the host once per iteration.
+The loop runs over one or several tables (the streaming engine's narrow
+and wide class buffers); their posterior sums add into one [T] vector
+per iteration.  Rows may carry a multiplicity `weight` (equivalence
+classes, em/classes.py); `static_base` adds folded single-candidate
+classes.  Sums use `index_add_`; on CUDA its atomics add in a varying
+order, so float64 results may move in the last ulp between runs.
+Convergence is tested on the host once per iteration.  `init_pi` and
+`start_iteration` resume from a checkpoint (em/checkpoint.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,7 +39,7 @@ def _unpack(table: Table, dt: torch.dtype):
 
 
 def run_em_tables(
-    table: Table,
+    tables: Sequence[Table],
     num_reads: int,
     *,
     num_transcripts: int,
@@ -46,15 +49,25 @@ def run_em_tables(
     epsilon: float = 1e-10,
     dtype: str = "float32",
     static_base: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, int]:
-    """Run the EM loop; returns (pi [T], iterations run)."""
+    init_pi: Optional[torch.Tensor] = None,
+    start_iteration: int = 0,
+) -> Tuple[torch.Tensor, int, bool]:
+    """Run the EM loop from iteration start_iteration (pi init_pi, or
+    uniform) up to max_iterations.
+
+    Returns (pi [T], iterations done, converged): converged tells an
+    early stop from reaching max_iterations, so a run split into
+    segments stops exactly where an uninterrupted one would.
+    """
     T = num_transcripts
     dt = _DTYPES[dtype]
-    tid, sc, wgt = _unpack(table, dt)
-    dev = tid.device
-    flat_tid = tid.reshape(-1)
+    prepped = [_unpack(table, dt) for table in tables]
+    dev = prepped[0][0].device
     base = None if static_base is None else static_base.to(dt)
-    pi = torch.full((T,), 1.0 / T, dtype=dt, device=dev)
+    if init_pi is None:
+        pi = torch.full((T,), 1.0 / T, dtype=dt, device=dev)
+    else:
+        pi = init_pi.to(dev, dt)
     # C++: float pseudocount = 0.01; 'pseudocount / R' divides in float32
     # (size_t -> float), and each addition then promotes.
     pcf = torch.tensor(pseudocount, dtype=torch.float32)
@@ -62,26 +75,27 @@ def run_em_tables(
     term_pc = pcf.to(dev, dt)
     eps = torch.tensor(epsilon, dtype=dt, device=dev)
     threshold = torch.tensor(convergence_threshold, dtype=dt, device=dev)
-    iterations = 0
-    while iterations < max_iterations:
+    iterations = start_iteration
+    converged = False
+    while iterations < max_iterations and not converged:
         ps = torch.zeros(T, dtype=dt, device=dev) if base is None else base.clone()
-        w = pi[tid] * sc
-        denom = w.sum(dim=1, keepdim=True)
-        post = w * torch.where(denom > eps, 1.0 / denom, 0.0)
-        if wgt is not None:
-            post = post * wgt
-        ps.index_add_(0, flat_tid, post.reshape(-1))
+        for tid, sc, wgt in prepped:
+            w = pi[tid] * sc
+            denom = w.sum(dim=1, keepdim=True)
+            post = w * torch.where(denom > eps, 1.0 / denom, 0.0)
+            if wgt is not None:
+                post = post * wgt
+            ps.index_add_(0, tid.reshape(-1), post.reshape(-1))
         new_pi = (ps + term_div) + term_pc
         change = (new_pi - pi).abs().sum()
         pi = new_pi
         iterations += 1
-        if bool(change < threshold):
-            break
-    return pi, iterations
+        converged = bool(change < threshold)
+    return pi, iterations, converged
 
 
 def assign_reads_tables(
-    table: Table,
+    tables: Sequence[Table],
     pi: torch.Tensor,
     *,
     num_transcripts: int,
@@ -97,20 +111,22 @@ def assign_reads_tables(
     """
     T = num_transcripts
     dt = _DTYPES[dtype]
-    tid, sc, wgt = _unpack(table, dt)
-    dev = tid.device
-    w = pi[tid] * sc
-    denom = w.sum(dim=1, keepdim=True)
-    ok = denom > 0
-    prob = w * torch.where(ok, 1.0 / torch.where(ok, denom, 1.0), 0.0)
-    contributes = (sc > 0) & ok
-    if wgt is not None:
-        prob = prob * wgt
-        contributes = contributes & (wgt > 0)
-    flat_tid = tid.reshape(-1)
-    weighted = torch.zeros(T, dtype=dt, device=dev).index_add_(0, flat_tid, prob.reshape(-1))
+    dev = pi.device
+    weighted = torch.zeros(T, dtype=dt, device=dev)
     has = torch.zeros(T, dtype=torch.int64, device=dev)
-    has.index_add_(0, flat_tid, contributes.reshape(-1).long())
+    for table in tables:
+        tid, sc, wgt = _unpack(table, dt)
+        w = pi[tid] * sc
+        denom = w.sum(dim=1, keepdim=True)
+        ok = denom > 0
+        prob = w * torch.where(ok, 1.0 / torch.where(ok, denom, 1.0), 0.0)
+        contributes = (sc > 0) & ok
+        if wgt is not None:
+            prob = prob * wgt
+            contributes = contributes & (wgt > 0)
+        flat_tid = tid.reshape(-1)
+        weighted.index_add_(0, flat_tid, prob.reshape(-1))
+        has.index_add_(0, flat_tid, contributes.reshape(-1).long())
     if static_base is not None:
         weighted = weighted + static_base.to(dt)
     if static_has is not None:

@@ -1,0 +1,327 @@
+"""ctypes binding of the native FASTQ/FASTA library (native/fastio.cpp).
+
+The same library and signatures as sketch_rna_tpu/io/native.py, returning
+the port's PackedReads / Packed2Reads / FastaRecords:
+
+  pack_fastq_native(path, min_len, pad_len)  -> (PackedReads, stats)
+  NativeFastqScan(path, min_len)             one scan, then pack_range /
+                                             pack_range2 of any record range
+  chunks_from_scan2(scan, chunk_reads, ...)  2-bit chunks, packed one ahead
+  LazyScanFeed(path, ...)                    the same feed, scanning on a
+                                             background thread
+  load_fasta_native(path)                    -> FastaRecords
+
+The library builds on first use with `make -C native` into
+native/libfastio.so.  A failed build logs a warning and leaves
+native_available() False; callers then take the Python parsers of
+io/fasta.py and io/fastq.py, which stay the semantic reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import logging
+import os
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+from sketch_rna_tpu_torch.io.fasta import FastaRecords
+from sketch_rna_tpu_torch.io.packing import Packed2Reads, PackedReads
+
+log = logging.getLogger(__name__)
+
+NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+SO_PATH = NATIVE_DIR / "libfastio.so"
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_PI64 = ctypes.POINTER(ctypes.c_int64)
+_PU8 = ctypes.POINTER(ctypes.c_uint8)
+_PI32 = ctypes.POINTER(ctypes.c_int32)
+_SIGNATURES = {
+    # name: (restype, argtypes)
+    "fastq_open_scan": (_P, [ctypes.c_char_p, _I64, _PI64, _PI64, _PI64, _PI64]),
+    "fastq_open_scan_mt": (_P, [ctypes.c_char_p, _I64, ctypes.c_int, _PI64, _PI64, _PI64, _PI64]),
+    "fastq_pack": (ctypes.c_int, [_P, _I64, _PU8, _PI32, ctypes.c_int]),
+    "fastq_pack_range": (ctypes.c_int, [_P, _I64, _I64, _I64, _PU8, _PI32, ctypes.c_int]),
+    "fastq_pack_range2": (ctypes.c_int, [_P, _I64, _I64, _I64, _PU8, _PI32, ctypes.c_int]),
+    "fastq_ids_size": (_I64, [_P]),
+    "fastq_get_ids": (ctypes.c_int, [_P, ctypes.c_char_p, _PI64]),
+    "fastq_close": (None, [_P]),
+    "fasta_open_scan": (_P, [ctypes.c_char_p, _PI64, _PI64]),
+    "fasta_seq_len": (_I64, [_P, _I64]),
+    "fasta_name_len": (_I64, [_P, _I64]),
+    "fasta_get": (ctypes.c_int, [_P, _I64, ctypes.c_char_p, ctypes.c_char_p]),
+    "fasta_close": (None, [_P]),
+}
+
+_load_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_once() -> Optional[ctypes.CDLL]:
+    if not SO_PATH.exists():
+        if not (NATIVE_DIR / "fastio.cpp").exists():
+            return None
+        try:
+            subprocess.run(["make", "-C", str(NATIVE_DIR)], check=True, capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:  # no compiler, no zlib headers, ...
+            detail = getattr(e, "stderr", b"") or b""
+            log.warning("native fastio build failed (%s%s); using the Python parsers", e,
+                        ": " + detail.decode(errors="replace").strip()[-300:] if detail else "")
+            return None
+    try:
+        lib = ctypes.CDLL(str(SO_PATH))
+    except OSError as e:
+        log.warning("native fastio load failed (%s); using the Python parsers", e)
+        return None
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The library, built on first use; None when it cannot be built."""
+    with _load_lock:  # one build, whichever thread asks first
+        return _load_once()
+
+
+def _require() -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native fastio unavailable")
+    return lib
+
+
+def native_available() -> bool:
+    return _load() is not None
+
+
+def _threads(n_threads: Optional[int]) -> int:
+    return n_threads or min(os.cpu_count() or 1, 16)
+
+
+def pack_fastq_native(
+    path: str,
+    min_len: int,
+    pad_len: Optional[int] = None,
+    n_threads: Optional[int] = None,
+    with_ids: bool = False,
+) -> Tuple[PackedReads, dict]:
+    """Parse + filter + pack a FASTQ (plain or gzip) natively, with the
+    semantics of load_fastq_dict + pack_reads: header-'@' records,
+    uppercase-ACGT validation, min_len filter, last valid duplicate ID
+    wins."""
+    lib = _require()
+    n_valid, n_seen, n_invalid, max_len = (ctypes.c_int64() for _ in range(4))
+    h = lib.fastq_open_scan(path.encode(), min_len, ctypes.byref(n_valid), ctypes.byref(n_seen),
+                            ctypes.byref(n_invalid), ctypes.byref(max_len))
+    if not h:
+        raise FileNotFoundError(f"Could not open FASTQ file: {path}")
+    try:
+        n = n_valid.value
+        L = pad_len if pad_len is not None else max(int(max_len.value), min_len)
+        codes = np.zeros((n, L), dtype=np.uint8)
+        lengths = np.zeros(n, dtype=np.int32)
+        if n and lib.fastq_pack(h, L, codes.ctypes.data_as(_PU8), lengths.ctypes.data_as(_PI32), _threads(n_threads)):
+            raise RuntimeError("fastq_pack failed")
+        ids = [str(i) for i in range(n)]
+        if with_ids and n:
+            buf = ctypes.create_string_buffer(int(lib.fastq_ids_size(h)))
+            offs = np.zeros(n + 1, dtype=np.int64)
+            lib.fastq_get_ids(h, buf, offs.ctypes.data_as(_PI64))
+            raw = buf.raw
+            ids = [raw[offs[i] : offs[i + 1]].decode() for i in range(n)]
+        stats = {"n_seen": int(n_seen.value), "n_invalid": int(n_invalid.value), "max_len": int(max_len.value)}
+        return PackedReads(codes, lengths, ids), stats
+    finally:
+        lib.fastq_close(h)
+
+
+class NativeFastqScan:
+    """A scanned, not yet packed FASTQ held open for range packing.
+
+    The scan already parsed, validated and deduplicated every record
+    (last valid duplicate wins), so packing any record range later is
+    the same as packing the whole file: chunk boundaries cannot change
+    which reads exist.
+    """
+
+    def __init__(self, path: str, min_len: int, scan_threads: int = 0):
+        self._lib = _require()
+        n_valid, n_seen, n_invalid, max_len = (ctypes.c_int64() for _ in range(4))
+        # scan_threads 0 picks a parallel byte-range scan for big files.
+        self._h = self._lib.fastq_open_scan_mt(path.encode(), min_len, scan_threads, ctypes.byref(n_valid),
+                                               ctypes.byref(n_seen), ctypes.byref(n_invalid), ctypes.byref(max_len))
+        if not self._h:
+            raise FileNotFoundError(f"Could not open FASTQ file: {path}")
+        self.num_reads = int(n_valid.value)
+        self.max_len = int(max_len.value)
+        self.stats = {"n_seen": int(n_seen.value), "n_invalid": int(n_invalid.value), "max_len": self.max_len}
+
+    def pack_range(self, start: int, count: int, pad_len: int, n_threads: Optional[int] = None) -> PackedReads:
+        codes = np.zeros((count, pad_len), dtype=np.uint8)
+        lengths = np.zeros(count, dtype=np.int32)
+        if count and self._lib.fastq_pack_range(self._h, start, count, pad_len, codes.ctypes.data_as(_PU8),
+                                                 lengths.ctypes.data_as(_PI32), _threads(n_threads)):
+            raise RuntimeError("fastq_pack_range failed")
+        return PackedReads(codes, lengths, [])
+
+    def pack_range2(
+        self,
+        start: int,
+        count: int,
+        pad_len: int,
+        n_threads: Optional[int] = None,
+        out_rows: Optional[int] = None,
+    ) -> Packed2Reads:
+        """2-bit range packing (4 bases per byte; pad_len a multiple of
+        4).  out_rows >= count zero-pads extra rows on the host."""
+        if pad_len % 4:
+            raise ValueError("pad_len must be a multiple of 4")
+        rows = out_rows if out_rows is not None else count
+        if rows < count:
+            raise ValueError("out_rows < count")
+        codes2 = np.zeros((rows, pad_len // 4), dtype=np.uint8)
+        lengths = np.zeros(rows, dtype=np.int32)
+        if count and self._lib.fastq_pack_range2(self._h, start, count, pad_len, codes2.ctypes.data_as(_PU8),
+                                                  lengths.ctypes.data_as(_PI32), _threads(n_threads)):
+            raise RuntimeError("fastq_pack_range2 failed")
+        return Packed2Reads(codes2, lengths, pad_len, n_real=count)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fastq_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def chunks_from_scan2(
+    scan: NativeFastqScan,
+    chunk_reads: int,
+    pad_len: Optional[int] = None,
+    n_threads: Optional[int] = None,
+    close: bool = True,
+    row_multiple: int = 1,
+):
+    """Yield 2-bit Packed2Reads chunks of up to chunk_reads reads from an
+    open scan, all at one pad_len (rounded up to a multiple of 4), rows
+    padded to row_multiple.  A background thread packs chunk c+1 while
+    the consumer works on chunk c (the C call releases the GIL).  Closes
+    the scan when done unless close=False."""
+    try:
+        n = scan.num_reads
+        if n == 0:
+            return
+        L = pad_len if pad_len is not None else max(scan.max_len, 1)
+        L = ((L + 3) // 4) * 4
+        m = max(row_multiple, 1)
+
+        def pack(s):
+            c = min(chunk_reads, n - s)
+            return scan.pack_range2(s, c, L, n_threads, out_rows=((c + m - 1) // m) * m)
+
+        starts = list(range(0, n, chunk_reads))
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(pack, starts[0])
+            for s in starts[1:]:
+                cur = fut.result()
+                fut = ex.submit(pack, s)
+                yield cur
+            yield fut.result()
+    finally:
+        if close:
+            scan.close()
+
+
+class LazyScanFeed:
+    """A 2-bit chunk feed whose native record scan runs on a background
+    thread: construction returns at once, so the scan overlaps what the
+    caller does next (the index upload).  Anything that needs the scan
+    (num_reads, pad_len, iteration) joins the thread first; a scan error
+    re-raises there."""
+
+    def __init__(self, path: str, min_len: int, chunk_reads: int, pad_len: Optional[int] = None,
+                 row_multiple: int = 1):
+        self._path = path
+        self._min_len = min_len
+        self._chunk_reads = chunk_reads
+        self._pad_len = pad_len
+        self._row_multiple = row_multiple
+        self._scan: Optional[NativeFastqScan] = None
+        self._exc: Optional[BaseException] = None
+        self._started = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            self._scan = NativeFastqScan(self._path, self._min_len)
+        except BaseException as e:  # re-raised on the caller's thread at join
+            self._exc = e
+
+    @property
+    def scan(self) -> NativeFastqScan:
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+        return self._scan
+
+    @property
+    def num_reads(self) -> int:
+        return self.scan.num_reads
+
+    @property
+    def pad_len(self) -> int:
+        if self._pad_len is not None:
+            return self._pad_len
+        return max(((self.scan.max_len + 7) // 8) * 8, self._min_len)
+
+    def __iter__(self):
+        self._started = True
+        return chunks_from_scan2(self.scan, self._chunk_reads, self.pad_len, row_multiple=self._row_multiple,
+                                 close=True)
+
+    def close(self) -> None:
+        """Close a scan that iteration never took over.  Called from the
+        caller's cleanup, so a late scan error is logged, not raised over
+        the exception already in flight."""
+        if self._started:
+            return
+        self._thread.join()
+        if self._exc is not None:
+            log.warning("background FASTQ scan failed during cleanup: %s", self._exc)
+        elif self._scan is not None:
+            self._scan.close()
+
+
+def load_fasta_native(path: str) -> FastaRecords:
+    lib = _require()
+    n_records, n_invalid = ctypes.c_int64(), ctypes.c_int64()
+    h = lib.fasta_open_scan(path.encode(), ctypes.byref(n_records), ctypes.byref(n_invalid))
+    if not h:
+        raise FileNotFoundError(f"Could not open FASTA file: {path}")
+    try:
+        names, seqs = [], []
+        for i in range(n_records.value):
+            nb = ctypes.create_string_buffer(int(lib.fasta_name_len(h, i)))
+            sb = ctypes.create_string_buffer(int(lib.fasta_seq_len(h, i)))
+            lib.fasta_get(h, i, nb, sb)
+            names.append(nb.raw.decode())
+            seqs.append(sb.raw.decode())
+        return FastaRecords(names, seqs, int(n_invalid.value))
+    finally:
+        lib.fasta_close(h)

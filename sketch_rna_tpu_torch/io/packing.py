@@ -5,7 +5,10 @@ A, T, C, G are valid (reference is_valid_sequence, src/data_io.cpp:17-34);
 anything else invalidates the whole sequence and the record is dropped.
 
 Codes are A=0, C=1, G=2, T=3 (the order of the hash seed table); reads
-pad into an [N, L] uint8 array with a lengths vector.
+pad into an [N, L] uint8 array with a lengths vector (PackedReads), or
+four codes to a byte (Packed2Reads), which quarters the bytes a
+streaming feed uploads; unpack_codes2 expands them on the host or on the
+device.
 """
 
 from __future__ import annotations
@@ -57,6 +60,55 @@ class PackedReads:
     @property
     def padded_len(self) -> int:
         return self.codes.shape[1]
+
+    def bit_packed(self) -> "Packed2Reads":
+        """2-bit repack (4 bases per byte) for transfer-efficient feeds."""
+        n, L = self.codes.shape
+        L4 = (L + 3) // 4
+        c = self.codes
+        if L4 * 4 != L:
+            c = np.concatenate([c, np.zeros((n, L4 * 4 - L), np.uint8)], axis=1)
+        q = c.reshape(n, L4, 4).astype(np.uint8)
+        codes2 = q[:, :, 0] | (q[:, :, 1] << 2) | (q[:, :, 2] << 4) | (q[:, :, 3] << 6)
+        return Packed2Reads(codes2, self.lengths, L)
+
+
+@dataclasses.dataclass
+class Packed2Reads:
+    """2-bit-packed reads: base j of a row in byte j >> 2, bits (j & 3) * 2.
+
+    codes2:  [N, ceil(L/4)] uint8 packed base codes, zero past lengths.
+    lengths: [N] int32 true lengths.
+    pad_len: the padded read length L the rows unpack to.
+    n_real:  rows that hold reads when the block was padded to a batch
+             multiple on the host; None = every row.
+    """
+
+    codes2: np.ndarray
+    lengths: np.ndarray
+    pad_len: int
+    n_real: Optional[int] = None
+
+    @property
+    def num_reads(self) -> int:
+        return self.n_real if self.n_real is not None else self.codes2.shape[0]
+
+    @property
+    def padded_len(self) -> int:
+        return self.pad_len
+
+
+def unpack_codes2(codes2, L: int):
+    """[..., ceil(L/4)] uint8 -> [..., L] base codes, by shifts and masks:
+    a numpy array unpacks on the host, a torch tensor on its device."""
+    if isinstance(codes2, np.ndarray):
+        shifts = np.arange(4, dtype=np.uint8) * 2
+    else:
+        import torch
+
+        shifts = torch.arange(4, dtype=torch.uint8, device=codes2.device) * 2
+    out = (codes2[..., None] >> shifts) & 3
+    return out.reshape(*codes2.shape[:-1], codes2.shape[-1] * 4)[..., :L]
 
 
 def pack_reads(

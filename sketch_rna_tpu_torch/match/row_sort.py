@@ -6,6 +6,10 @@ hand-written bitonic kernel for that key type (or raises); on a CPU
 tensor it runs the plain version, `row_sort_plain`.  The int64 instance
 is the key+payload sort: a (key << 32) | payload row sorts exactly as
 (key, payload) when both halves fit in 32 bits.
+
+`row_sort_wide` sorts rows of any power-of-two width: one K4 launch sorts
+every 16384-lane chunk, and rounds of `bitonic_merge_pair` in plain torch
+merge neighbouring chunks.  It is a composition of K4, not a kernel.
 """
 
 from __future__ import annotations
@@ -58,6 +62,44 @@ def row_sort(x: torch.Tensor) -> torch.Tensor:
         else:
             row_sort.launches_i64 += 1
     return out
+
+
+def bitonic_merge_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two row-wise ascending [B, w] rows (w a power of two) into
+    one sorted [B, 2w] row: reverse b, making each row bitonic, then run
+    the log2(2w) compare-exchange stages of a bitonic merge."""
+    B, w = a.shape
+    x = torch.cat([a, b.flip(1)], dim=1)
+    n = 2 * w
+    d = w
+    while d >= 1:
+        y = x.view(B, n // (2 * d), 2, d)
+        lo = torch.minimum(y[:, :, 0], y[:, :, 1])
+        hi = torch.maximum(y[:, :, 0], y[:, :, 1])
+        x = torch.stack((lo, hi), dim=2).reshape(B, n)
+        d //= 2
+    return x
+
+
+def row_sort_wide(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of every row of x ([B, W] int32 or int64, W any
+    power of two >= 2): `row_sort` up to MAX_WIDTH lanes; past that, one
+    K4 launch over the [B * W / MAX_WIDTH, MAX_WIDTH] chunks, then
+    log2(W / MAX_WIDTH) rounds that merge neighbouring sorted runs."""
+    if x.dim() != 2:
+        raise ValueError(f"row_sort_wide takes [B, W], got {tuple(x.shape)}")
+    B, W = x.shape
+    if W <= MAX_WIDTH:
+        return row_sort(x)
+    if W & (W - 1):
+        raise ValueError(f"row width {W} is not a power of two")
+    y = row_sort(x.contiguous().view(-1, MAX_WIDTH))
+    w = MAX_WIDTH
+    while w < W:
+        pairs = y.view(-1, 2, w)
+        y = bitonic_merge_pair(pairs[:, 0], pairs[:, 1])
+        w *= 2
+    return y.view(B, W)
 
 
 # Kernel launches since the last reset, per key type.

@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, row_sort
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, bitonic_merge_pair, row_sort
 
 I32_MAX = 2**31 - 1  # sentinel event key; sorts after every tid
 # Widest per-read event row of one k (the JAX engines' expansion retry
@@ -180,23 +180,6 @@ def _shift_left(x: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.nn.functional.pad(x[:, 1:], (0, 1), value=fill)
 
 
-def _bitonic_merge_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Merge two row-wise ascending [B, w] rows (w a power of two) into
-    one sorted [B, 2w] row: reverse b, making each row bitonic, then run
-    the log2(2w) compare-exchange stages of a bitonic merge."""
-    B, w = a.shape
-    x = torch.cat([a, b.flip(1)], dim=1)
-    n = 2 * w
-    d = w
-    while d >= 1:
-        y = x.view(B, n // (2 * d), 2, d)
-        lo = torch.minimum(y[:, :, 0], y[:, :, 1])
-        hi = torch.maximum(y[:, :, 0], y[:, :, 1])
-        x = torch.stack((lo, hi), dim=2).reshape(B, n)
-        d //= 2
-    return x
-
-
 def sort_event_parts(parts: Sequence[torch.Tensor], sort: Sort = row_sort) -> torch.Tensor:
     """Sort per-k [B, w_k] event-key parts into one ascending row.
 
@@ -213,7 +196,7 @@ def sort_event_parts(parts: Sequence[torch.Tensor], sort: Sort = row_sort) -> to
     padded += [torch.full_like(padded[0], I32_MAX)] * (pow2ceil(len(parts)) - len(parts))
     level = list(sort(torch.cat(padded)).split(B))
     while len(level) > 1:
-        level = [_bitonic_merge_pair(level[i], level[i + 1]) for i in range(0, len(level), 2)]
+        level = [bitonic_merge_pair(level[i], level[i + 1]) for i in range(0, len(level), 2)]
     return level[0]
 
 

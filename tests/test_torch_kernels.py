@@ -18,6 +18,7 @@ from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
 from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
 from sketch_rna_tpu_torch.match.row_sort import row_sort
+from sketch_rna_tpu_torch.sketch import dispatch
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 from sketch_rna_tpu_torch.sketch.fracminhash import sketch_batch
 
@@ -86,11 +87,12 @@ def test_k4_int64_plain_equals_torch_sort(W):
     np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))
 
 
-@pytest.mark.parametrize("L,ks", [(1200, (31,)), (1040, (21, 31)), (16414, (31,))])
+@pytest.mark.parametrize("L,ks", [(1200, (31,)), (1040, (21, 31)), (16414, (31,)), (20000, (21, 31))])
 def test_sketch_reads_routes_equal_sketch_batch(L, ks):
     """Reads past K1's 1024 windows sketch through K3 + a K4 dedup (at
-    L = 1040, k = 21 takes K3 and k = 31 the fused kernel); every route
-    equals sketch_batch and the JAX package's sketch_batch."""
+    L = 1040, k = 21 takes K3 and k = 31 the fused kernel), past 16384
+    windows through K3 + row_sort_wide; every route equals sketch_batch
+    and the JAX package's sketch_batch."""
     codes, lengths = _batch(L, L, B=6)
     caps = [QuantConfig().sketch_capacity_for(k, L) for k in ks]
     got = sketch_reads(torch.from_numpy(codes), torch.from_numpy(lengths), ks, FRACTION, caps)
@@ -104,9 +106,17 @@ def test_sketch_reads_routes_equal_sketch_batch(L, ks):
 
 
 def test_sketch_reads_refuses_past_k4_width():
+    """Past K4's widest row (16384 windows) sketch_reads no longer
+    refuses: the dedup sorts through row_sort_wide and equals
+    sketch_batch, also when the rows are sketched in several slices.
+    The fused kernel K1 still refuses reads past its 1024 windows."""
     codes = torch.zeros((2, 16415), dtype=torch.uint8)
+    codes[1, ::3] = 2
     lengths = torch.full((2,), 16415, dtype=torch.int32)
-    with pytest.raises(ValueError, match="16384 windows.*ROADMAP"):
-        sketch_reads(codes, lengths, (31,), FRACTION, (64,))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dispatch, "PLANE_BYTES", 8 * 32768)  # one row per slice
+        got = sketch_reads(codes, lengths, (31,), FRACTION, (64,))[0]
+    for a, b in zip(got, sketch_batch(codes, lengths, 31, FRACTION, 64)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="K3"):
         fused_sketch(codes, lengths, 31, FRACTION, 64)

@@ -6,7 +6,7 @@ relative, float32 within 1e-5; the CSV row set, the iteration count and
 the summed overflow stats must be equal.  Cases: the equivalence-class
 path, the per-read path, a per-k candidate spill (which the port
 regroups merged, batch by batch), reads past the fused kernels' 1024
-windows, and the CLI.
+windows, reads past K4's 16384 windows (20 kb), and the CLI.
 """
 
 import dataclasses
@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+import torch
 import pytest
 
 from sketch_rna_tpu.cli import main as jax_cli
@@ -29,7 +30,7 @@ from sketch_rna_tpu_torch.index.artifact import to_device
 from sketch_rna_tpu_torch.index.build import build_index
 from sketch_rna_tpu_torch.io.fasta import FastaRecords
 from sketch_rna_tpu_torch.io.packing import PackedReads
-from sketch_rna_tpu_torch.pipeline import _match_tables, quantify
+from sketch_rna_tpu_torch.pipeline import match_rows, quantify
 from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
 KS = (21, 31)
@@ -66,7 +67,21 @@ def test_build_index_multik_equals_jax(problem):
         assert not np.isin(a.postings, [len(names) - 2, len(names) - 1]).any()
 
 
+@pytest.fixture(scope="module")
+def long_problem():
+    """12 transcripts of 20-24 kb, so error-free 20,000 bp reads exist."""
+    seqs = synth_transcriptome(np.random.default_rng(25), 12, 20000, 24000)
+    names = [f"L{i}" for i in range(len(seqs))]
+    return seqs, jax_build_index(JaxRecords(names, _text(seqs), 0), JaxConfig(kmer_lengths=KS))
+
+
 def _reads(seqs, case):
+    if case == "very-long":  # 20,000 bp reads (nk_pad 32768 at k = 21 and 31) among 100 bp reads
+        c1, n1 = sample_reads(seqs, 6, 20000, 20480, seed=33)
+        c2, n2 = sample_reads(seqs, 200, 100, 20480, seed=34)
+        codes, lengths = np.concatenate([c1, c2]), np.concatenate([n1, n2])
+        order = np.random.default_rng(35).permutation(lengths.size)  # long reads among short ones
+        return codes[order], lengths[order]
     if case == "long":  # 1,200 bp reads (nk_pad 2048: K3 + K4 dedup) among 100 bp reads
         c1, n1 = sample_reads(seqs, 300, 1200, 1280, seed=31)
         c2, n2 = sample_reads(seqs, 500, 100, 1280, seed=32)
@@ -78,7 +93,7 @@ def _reads(seqs, case):
 def _assert_quant_equal(got, ref, rtol, min_rows=50):
     assert got.em_iterations == ref.em_iterations
     np.testing.assert_array_equal(got.has_entry, ref.has_entry)
-    assert got.has_entry.sum() > min_rows
+    assert got.has_entry.sum() > min(min_rows, got.has_entry.size // 2)
     np.testing.assert_allclose(got.pi, ref.pi, rtol=rtol, atol=0)
     np.testing.assert_allclose(got.weighted_counts, ref.weighted_counts, rtol=rtol, atol=0)
     for key in ("sketch_overflow", "expand_dropped", "candidate_spilled"):
@@ -93,16 +108,22 @@ def _assert_quant_equal(got, ref, rtol, min_rows=50):
         ("classes", "float32", 8192, 1e-5),
         ("per-read", "float64", 256, 1e-9),
         ("long", "float64", 256, 1e-9),
+        ("very-long", "float64", 32, 1e-9),
     ],
 )
-def test_quantify_multik_equals_jax(problem, case, dtype, batch, rtol):
+def test_quantify_multik_equals_jax(request, problem, case, dtype, batch, rtol):
     seqs, _, idx = problem
+    if case == "very-long":
+        seqs, idx = request.getfixturevalue("long_problem")
     if case == "long":
         seqs = [s for s in seqs if s.size >= 1200]
     codes, lengths = _reads(seqs, case)
     ids = [f"r{i}" for i in range(codes.shape[0])]
+    # A 20 kb read expands ~2,000 events per k: starting the JAX engine at
+    # that budget skips its doubling reruns (same result, fewer compiles).
+    budget = {"expand_per_read": 4096} if case == "very-long" else {}
     ref = jax_quantify(idx, JaxPacked(codes, lengths, ids),
-                       JaxConfig(kmer_lengths=KS, em_dtype=dtype, batch_size=batch))
+                       JaxConfig(kmer_lengths=KS, em_dtype=dtype, batch_size=batch, **budget))
     got = quantify(to_device(idx, "cpu"), PackedReads(codes, lengths, ids),
                    QuantConfig(kmer_lengths=KS, em_dtype=dtype, batch_size=batch))
     _assert_quant_equal(got, ref, rtol)
@@ -139,7 +160,7 @@ def test_per_k_spill_regroups_merged():
     assert got.stats["candidate_spilled"] == int(np.asarray(r_per_k.stats["candidate_spilled"]).sum()) > 0
     assert got.stats["candidate_spilled_per_k"] > 0
 
-    tid, score, _, _ = _match_tables(dev, PackedReads(codes, lengths, []), cfg)
+    tid, score, _, _ = match_rows(dev, torch.from_numpy(codes), lengths, cfg)
     bp, post, meta = _device_index(idx, ks)
     jt, js, jm, _ = jax_step(
         jnp.asarray(codes[:, :72]), jnp.asarray(lengths), bp, post,

@@ -1,0 +1,110 @@
+"""The port's binding of native/fastio.cpp against the JAX package's.
+
+Both bind the same library; on the same plain and gzip FASTQ / FASTA
+files every array, id and count must be equal, and equal to the port's
+Python parsers.  The tests skip, with the reason, only when the library
+cannot be built on this machine.
+"""
+
+import gzip
+
+import numpy as np
+import pytest
+
+from sketch_rna_tpu.io import native as jax_native
+from sketch_rna_tpu_torch.io import native
+from sketch_rna_tpu_torch.io.fasta import load_fasta
+from sketch_rna_tpu_torch.io.fastq import load_fastq_dict
+from sketch_rna_tpu_torch.io.packing import pack_reads, unpack_codes2
+
+
+@pytest.fixture(scope="module")
+def lib():
+    if not native.native_available():
+        pytest.skip(f"native fastio library did not build ({native.SO_PATH}); make -C native failed")
+    assert jax_native.native_available()
+
+
+def _fastq(tmp_path, rng, n=700, gz=False):
+    lines = []
+    for i in range(n):
+        ln = int(rng.integers(20, 160))
+        seq = "".join("ACGT"[c] for c in rng.integers(0, 4, size=ln))
+        lines.append(f"@read{i} extra\n{seq}\n+\n{'I' * ln}\n")
+    lines.append("@read3 extra\n" + "ACGT" * 20 + "\n+\n" + "I" * 80 + "\n")  # duplicate: last wins
+    lines.append("@bad\nACGTNACGTACGTACGTACGTACGTACGTACGTACGT\n+\n" + "I" * 37 + "\n")  # invalid
+    text = "".join(lines)
+    path = tmp_path / ("r.fq.gz" if gz else "r.fq")
+    if gz:
+        with gzip.open(path, "wt") as fh:
+            fh.write(text)
+    else:
+        path.write_text(text)
+    return str(path)
+
+
+@pytest.mark.parametrize("gz", [False, True])
+def test_pack_fastq_native_equals_jax(lib, tmp_path, gz):
+    path = _fastq(tmp_path, np.random.default_rng(1), gz=gz)
+    got, stats = native.pack_fastq_native(path, min_len=31, with_ids=True)
+    want, want_stats = jax_native.pack_fastq_native(path, min_len=31, with_ids=True)
+    np.testing.assert_array_equal(got.codes, want.codes)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    assert got.ids == want.ids and stats == want_stats
+    d = load_fastq_dict(path, min_len=31)
+    py, _, _ = pack_reads(list(d.values()), list(d.keys()), min_len=31, pad_len=got.padded_len)
+    np.testing.assert_array_equal(got.codes, py.codes)
+    assert got.ids == py.ids
+
+
+@pytest.mark.parametrize("gz", [False, True])
+def test_scan_ranges_and_chunks_equal_jax(lib, tmp_path, gz):
+    path = _fastq(tmp_path, np.random.default_rng(2), gz=gz)
+    with native.NativeFastqScan(path, 31) as scan, jax_native.NativeFastqScan(path, 31) as ref:
+        assert (scan.num_reads, scan.max_len, scan.stats) == (ref.num_reads, ref.max_len, ref.stats)
+        a, b = scan.pack_range(100, 57, 160), ref.pack_range(100, 57, 160)
+        np.testing.assert_array_equal(a.codes, b.codes)
+        np.testing.assert_array_equal(a.lengths, b.lengths)
+        a2, b2 = scan.pack_range2(10, 90, 160, out_rows=96), ref.pack_range2(10, 90, 160, out_rows=96)
+        np.testing.assert_array_equal(a2.codes2, b2.codes2)
+        np.testing.assert_array_equal(a2.lengths, b2.lengths)
+        assert (a2.num_reads, a2.pad_len) == (b2.num_reads, b2.pad_len) == (90, 160)
+        np.testing.assert_array_equal(unpack_codes2(a2.codes2, 160)[:90], scan.pack_range(10, 90, 160).codes)
+        for chunk_reads, multiple in ((64, 1), (250, 32), (4096, 64)):
+            got = list(native.chunks_from_scan2(scan, chunk_reads, 157, row_multiple=multiple, close=False))
+            want = list(jax_native.chunks_from_scan2(ref, chunk_reads, 157, row_multiple=multiple, close=False))
+            assert len(got) == len(want) and sum(c.num_reads for c in got) == scan.num_reads
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.codes2, w.codes2)
+                np.testing.assert_array_equal(g.lengths, w.lengths)
+                assert (g.pad_len, g.num_reads, g.codes2.shape[0] % multiple) == (w.pad_len, w.num_reads, 0)
+
+
+def test_lazy_scan_feed_equals_jax(lib, tmp_path):
+    path = _fastq(tmp_path, np.random.default_rng(3))
+    feed = native.LazyScanFeed(path, 31, 128, row_multiple=32)
+    ref = jax_native.LazyScanFeed(path, 31, 128, row_multiple=32)
+    assert (feed.num_reads, feed.pad_len) == (ref.num_reads, ref.pad_len)
+    for g, w in zip(list(feed), list(ref)):
+        np.testing.assert_array_equal(g.codes2, w.codes2)
+        np.testing.assert_array_equal(g.lengths, w.lengths)
+    feed.close()  # iteration took the scan over: a no-op
+    unused = native.LazyScanFeed(path, 31, 128)
+    unused.close()  # closes a scan that was never iterated
+
+
+def test_load_fasta_native_equals_jax(lib, tmp_path):
+    path = tmp_path / "t.fa"
+    path.write_text(">tx1 desc\nACGTACGT\nACGT\n\n>tx2\nGGGG\n>bad\nACGTN\n>tx1 dup\nTTTT\n")
+    got, want, py = native.load_fasta_native(str(path)), jax_native.load_fasta_native(str(path)), load_fasta(str(path))
+    assert (got.names, got.seqs, got.n_invalid) == (want.names, want.seqs, want.n_invalid)
+    assert (got.names, got.seqs, got.n_invalid) == (py.names, py.seqs, py.n_invalid)
+
+
+def test_missing_file_raises(lib):
+    with pytest.raises(FileNotFoundError):
+        native.pack_fastq_native("/nonexistent/x.fq", min_len=31)
+    with pytest.raises(FileNotFoundError):
+        native.NativeFastqScan("/nonexistent/x.fq", 31)
+    with pytest.raises(FileNotFoundError):
+        native.load_fasta_native("/nonexistent/x.fa")

@@ -49,3 +49,22 @@ def test_plain_row_sort_equals_pallas(W):
 def test_row_sort_rejects_bad_input(x, err):
     with pytest.raises(err):
         row_sort(x)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("W", [32768, 65536])
+def test_row_sort_wide_equals_torch_sort(W, dtype):
+    """Past K4's widest row, row_sort_wide sorts the 16384-lane chunks on
+    K4 (its plain version here) and merges them: equal to torch.sort."""
+    from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
+
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(W + info.bits)
+    x = rng.integers(info.min, info.max, size=(4, W), endpoint=True, dtype=dtype)
+    x[0] = rng.integers(0, 3, size=W)  # heavy duplicates
+    x[1, ::2], x[1, 1::2] = info.min, info.max  # extremes
+    x[2] = np.arange(W, dtype=dtype)[::-1]  # descending
+    t = torch.from_numpy(x)
+    got = row_sort_wide(t)
+    assert got.shape == t.shape and got.dtype == t.dtype
+    assert torch.equal(got, torch.sort(t, dim=1).values)
