@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                    # from the repository root; needs one card
     python3 chip_smoke.py --phases kernels   # a subset (device and build always run)
+    python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's kernels timed beside these
+    python3 chip_smoke.py --phases main-shapes           # only the main-path kernel times, as JSON
 
 Phases, in order; any failure raises and the script exits nonzero
 without printing its result line:
@@ -11,7 +13,16 @@ without printing its result line:
   build         nvcc builds the kernels in csrc/, one process per source;
   kernels       K1 (fused sketch), K2 (multi-k fused sketch), K3 (hash
                 plane), K4 (row sort, int32) and K4-int64 against their
-                plain PyTorch versions on the card, bit for bit, with times;
+                plain PyTorch versions on the card, bit for bit, over the
+                edges of their domains (K1 / K2 at 104, 152 and 1028
+                bases, fractions 0.05 and 0.9999, caps that overflow; K4
+                at every width 2 .. 16384 and 8192, 8191 or 1 rows); then
+                each kernel's device time at its main-path shape beside
+                its plain version's, torch.sort's for K4, and its bound,
+                and K4 against torch.sort at every width.  Device time is
+                torch.profiler's per kernel over 50 calls whose inputs
+                rotate through copies past the L2 cache, timed in turns
+                plain, kernel, kernel, plain; the host is left out;
   sample        the port's CLI on examples/sample.{fa,fq}, k=31: the
                 float64 CSV is byte-identical to examples/sample.expected.csv,
                 the float32 CSV within 1e-4 relative;
@@ -55,8 +66,11 @@ timed quant (every count set to 0 just before it), checks read-count
 conservation and zero dropped work, and holds the first batch's
 candidate tables against the plain functions on the same tensors.
 
-Then one JSON line per kernel ({"kernels": [...]}), the nvidia-smi line
-of the card, and last {"ok": true, "device": {...}}.  Imports no JAX.
+Then one JSON line per kernel ({"kernels": [...]}: launches on the main
+path, device ms, plain ms, bound in ms and us with the bytes and
+operations behind it, share of bound, library_ms (torch.sort for K4) and,
+with --parent, parent_ms), the nvidia-smi line of the card, and last
+{"ok": true, "device": {...}}.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -64,8 +78,8 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -83,6 +97,13 @@ LONG_READS = (2000, 100_000)
 VERY_LONG = (200, 2000, 20000)  # (transcripts, reads, read length)
 C3_READS = 10_000_000
 CLI_READS = 2_200_000
+REPS = 50  # calls per device-time measurement
+L2_BYTES = 50 * 2**20
+# The H100 SXM's published memory rate; its CUDA cores' 32-bit integer
+# rate (132 SMs x 64 lanes x 1.98 GHz boost), which the published table of
+# peaks leaves out.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 PHASES = ("kernels", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads", "stream",
           "stream-c3", "cli-stream", "samples")
 KERNELS = {
@@ -100,27 +121,115 @@ def require(ok: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_pair_ms(torch, kernel, plain, reps: int = 20):
-    """Median CUDA-event times of two callables, measured in turns
-    (plain, kernel, kernel, plain) and averaged per callable."""
+def rotation(args, nbytes: int):
+    """Copies of the argument tuple, enough that cycling through them
+    reads 2 x L2 from device memory (at most 64): a timed call finds its
+    inputs cold, as the main path's kernels mostly do."""
+    n = min(64, max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
 
-    def median_ms(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
 
-    p1, k1, k2, p2 = median_ms(plain), median_ms(kernel), median_ms(kernel), median_ms(plain)
+MARK = "spin_kernel"  # torch.cuda._sleep's kernel, which marks where a call starts
+
+
+def whole_calls(events):
+    """The device operations of each call that a trace holds whole: the
+    runs between consecutive marks whose length is the most common one.
+    A lost record shortens its call's run and a lost mark merges two
+    runs; either way that run is left out."""
+    runs, cur = [], None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if MARK in e.name:
+            if cur is not None:
+                runs.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(e)
+    if not runs:
+        return []
+    lengths = [len(r) for r in runs]
+    n = max(set(lengths), key=lengths.count)
+    return [r for r in runs if len(r) == n]
+
+
+def device_ms(torch, fn, arg_sets, kernel=None, reps=None):
+    """Mean device time of one call of fn(*args), in ms: torch.profiler
+    over `reps` calls after a warm-up, cycling through arg_sets.  With
+    `kernel` (a substring of a kernel's name) the mean time of that
+    kernel's traced launches; else the mean, over the calls the trace
+    holds whole (whole_calls), of the sum of each call's device
+    operations.  The host's share of a call is left out.
+
+    A trace on the card can lose some of its device records (3 of 50,
+    now and then, in one run).  So a trace is taken again until it holds
+    every launch or every call whole, at most four times, keeping the
+    fullest, which must hold half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if reps is None:
+        reps = REPS
+    for a in arg_sets[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    best, counts = [], []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                if kernel is None:
+                    torch.cuda._sleep(0)
+                fn(*arg_sets[r % len(arg_sets)])
+            if kernel is None:
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e for e in events if kernel in e.name] if kernel is not None else whole_calls(events)
+        counts.append(len(mine))
+        if len(mine) > len(best):
+            best = mine
+        if len(mine) == reps:
+            break
+    if len(set(counts)) > 1:
+        print(f"[kernels] traces of {kernel or 'a call'} held {counts} {'launches' if kernel else 'whole calls'} "
+              f"of {reps}; the fullest is used")
+    require((reps + 1) // 2 <= len(best) <= reps,
+            f"{len(best)} {'launches of ' + kernel if kernel else 'whole calls'} traced in {reps} calls")
+    if kernel is not None:
+        return sum(e.time_range.elapsed_us() for e in best) / len(best) / 1e3
+    return sum(e.time_range.elapsed_us() for run in best for e in run) / len(best) / 1e3
+
+
+def in_turns(torch, kernel_fn, plain_fn, arg_sets, kernel, reps=None):
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
+    p1 = device_ms(torch, plain_fn, arg_sets, reps=reps)
+    k1 = device_ms(torch, kernel_fn, arg_sets, kernel, reps)
+    k2 = device_ms(torch, kernel_fn, arg_sets, kernel, reps)
+    p2 = device_ms(torch, plain_fn, arg_sets, reps=reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: int, ops: int):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the integer operations over the integer rate."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def sort_work(B: int, W: int, itemsize: int):
+    """(bytes, integer operations) of sorting [B, W] keys: each row read
+    and written once; the ceil(log2 W!) comparisons a comparison sort of
+    a row needs at least, one operation each on 32-bit words (two on
+    int64), whatever network a kernel runs."""
+    need = math.ceil(math.lgamma(W + 1) / math.log(2))
+    return 2 * B * W * itemsize, B * need * (itemsize // 4)
+
+
+def sketch_work(B: int, L: int, ks, caps):
+    """(bytes, integer operations) of sketching [B, L] reads at ks: codes
+    and lengths in, per k a [B, cap] int64 row + bool mask + int32
+    overflow out; ~8 operations per position (the prefix XOR) and per
+    window (its hash and threshold)."""
+    nbytes = B * L + 4 * B + sum(B * cap * 9 + 4 * B for cap in caps)
+    return nbytes, 8 * B * L + sum(8 * B * (L - k + 1) for k in ks)
 
 
 def counters():
@@ -195,92 +304,204 @@ def _read_batch(torch, rng, B, L, k):
     return torch.from_numpy(codes).to(DEVICE), torch.from_numpy(lengths).to(DEVICE)
 
 
-def phase_kernels(torch, results):
+def _keys(torch, gen, B, W, dtype):
+    """[B, W] keys over the type's whole range, made on the card from gen:
+    a quarter of the rows from {0, 1, 2} (long runs of equal keys) and 16
+    rows of alternating extremes."""
+    if dtype == torch.int32:
+        x = torch.randint(-(2**31), 2**31, (B, W), generator=gen, device=DEVICE, dtype=torch.int64).to(dtype)
+    else:
+        hi = torch.randint(0, 2**32, (B, W), generator=gen, device=DEVICE, dtype=torch.int64)
+        x = (hi << 32) | torch.randint(0, 2**32, (B, W), generator=gen, device=DEVICE, dtype=torch.int64)
+        del hi
+    q = B // 4
+    x[:q] = torch.randint(0, 3, (q, W), generator=gen, device=DEVICE, dtype=torch.int64).to(dtype)
+    x[q : q + 16, ::2] = torch.iinfo(dtype).min
+    x[q : q + 16, 1::2] = torch.iinfo(dtype).max
+    return x
+
+
+def main_shape_cases(torch):
+    """Each kernel at its main-path shape, inputs made from SEED: name ->
+    (kernel callable, plain callable, kernel-name substring, argument
+    copies, (bytes, operations), shape).  K1 and K4 run on the single-k
+    path, K2, K4 and K4-int64 on the multi-k one (PERF.md §6), K3 on long
+    reads."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
+    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
+    from sketch_rna_tpu_torch.sketch.fracminhash import hash_plane, sketch_all_k, sketch_batch
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cfg = QuantConfig()
+    f = cfg.sketch_fraction
+    L, ks = 104, (21, 31)
+    cap = cfg.sketch_capacity_for(31, L)
+    caps = tuple(cfg.sketch_capacity_for(k, L) for k in ks)
+    reads = _read_batch(torch, rng, BATCH, L, 31)
+    long_reads = _read_batch(torch, rng, BATCH, 2000, 31)
+    cases = {
+        "K1": (lambda c, n: fused_sketch(c, n, 31, f, cap), lambda c, n: sketch_batch(c, n, 31, f, cap),
+               "sketch", reads, sketch_work(BATCH, L, (31,), (cap,)), f"[{BATCH}, {L}] k=31 cap {cap}"),
+        "K2": (lambda c, n: fused_sketch_multik(c, n, ks, f, caps), lambda c, n: sketch_all_k(c, n, ks, f, caps),
+               "sketch", reads, sketch_work(BATCH, L, ks, caps), f"[{BATCH}, {L}] ks {ks} caps {caps}"),
+        "K3": (lambda c, n: nthash_sketch(c, n, 31, f), lambda c, n: hash_plane(c, n, 31, f),
+               "nthash_sketch_kernel", long_reads,
+               (BATCH * 2000 + 4 * BATCH + 8 * BATCH * 1970, 8 * BATCH * (2000 + 1970)), f"[{BATCH}, 2000] k=31"),
+    }
+    for name, dtype in (("K4", torch.int32), ("K4-int64", torch.int64)):
+        x = _keys(torch, gen, BATCH, 256, dtype)
+        cases[name] = (row_sort, row_sort_plain, "row_sort_kernel", (x,),
+                       sort_work(BATCH, 256, x.element_size()), f"[{BATCH}, 256] {str(dtype)[6:]}")
+    return {name: (fn, plain, kern, rotation(args, sum(a.numel() * a.element_size() for a in args)), work, shape)
+            for name, (fn, plain, kern, args, work, shape) in cases.items()}
+
+
+def main_shape_times(torch):
+    """The kernels' device ms at their main-path shapes (two turns each):
+    what the main-shapes phase prints for a comparison run."""
+    times = {}
+    for name, (fn, _, kern, arg_sets, _, _) in main_shape_cases(torch).items():
+        times[name] = (device_ms(torch, fn, arg_sets, kern) + device_ms(torch, fn, arg_sets, kern)) / 2
+    return times
+
+
+def parent_times(torch, parent: Path):
+    """main_shape_times of the kernels in `parent`, a checkout of another
+    commit holding this script, in a process of its own on this card."""
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, str(parent / "chip_smoke.py"), "--phases", "main-shapes"], cwd=parent,
+                         capture_output=True, text=True, timeout=600)
+    require(run.returncode == 0, f"the kernels of {parent} did not run: {run.stdout[-1500:]}{run.stderr[-1500:]}")
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith('{"main_shape_ms"')]
+    require(bool(line), f"no timing line from {parent}")
+    return json.loads(line[-1])["main_shape_ms"]
+
+
+def phase_kernels(torch, results, parent=None):
+    """Every kernel against its plain version, bit for bit, at the edges
+    of its domain; then device times (the host left out) at the main-path
+    shapes and, for K4, at every width beside torch.sort."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
+    from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik, window_pad
     from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain, row_sort_wide
     from sketch_rna_tpu_torch.sketch.fracminhash import hash_plane, sketch_all_k, sketch_batch
 
     rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cfg = QuantConfig()
-    f = cfg.sketch_fraction
-    for L in (104, 152):
-        for k in (21, 31):
-            codes, lengths = _read_batch(torch, rng, BATCH, L, k)
-            caps = [cfg.sketch_capacity_for(k, L)] + ([4] if (L, k) == (104, 31) else [])
-            for cap in caps:
-                got = fused_sketch(codes, lengths, k, f, cap)
-                want = sketch_batch(codes, lengths, k, f, cap)
-                torch.cuda.synchronize()
-                require(same_tensors(torch, got, want), f"K1 differs from sketch_batch at L={L} k={k} cap={cap}")
-                if cap == 4:
-                    require(int(got[2]) > 0, "cap 4 did not overflow")
-                record(results, "K1", max_abs_err=max_err(got, want))
-                ms, plain_ms = time_pair_ms(torch, lambda: fused_sketch(codes, lengths, k, f, cap),
-                                            lambda: sketch_batch(codes, lengths, k, f, cap))
-                print(f"[kernels] K1 B={BATCH} L={L} k={k} cap={cap}: bit-equal, overflow={int(got[2])}, "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # K1 and K2: fraction 0.05 (the default) and 0.9999, where nearly every
+    # window is kept and a read's survivors overflow one warp (the wide
+    # path); caps from the quant path's rule, 4 (overflow) and nk_pad
+    # (room for every window); B - 1 rows from an offset of L bytes.
     ks = (21, 31)
-    for L in (104, 152):
+    for L in (104, 152, 1028):
         codes, lengths = _read_batch(torch, rng, BATCH, L, 31)
-        for caps in [tuple(cfg.sketch_capacity_for(k, L) for k in ks)] + ([(4, 4)] if L == 104 else []):
-            got = fused_sketch_multik(codes, lengths, ks, f, caps)
-            want = sketch_all_k(codes, lengths, ks, f, caps)
-            torch.cuda.synchronize()
-            for g, w, k in zip(got, want, ks):
-                require(same_tensors(torch, g, w), f"K2 differs from sketch_batch at L={L} k={k} caps={caps}")
-                record(results, "K2", max_abs_err=max_err(g, w))
-            overflow = [int(g[2]) for g in got]
-            if caps == (4, 4):
-                require(min(overflow) > 0, "caps (4, 4) did not overflow")
-            ms, plain_ms = time_pair_ms(torch, lambda: fused_sketch_multik(codes, lengths, ks, f, caps),
-                                        lambda: sketch_all_k(codes, lengths, ks, f, caps))
-            print(f"[kernels] K2 B={BATCH} L={L} ks={ks} caps={caps}: bit-equal, overflow={overflow}, "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        for f in (cfg.sketch_fraction, 0.9999):
+            for c, n in ((codes, lengths), (codes[1:], lengths[1:])):
+                for k in ks:
+                    for cap in sorted({cfg.sketch_capacity_for(k, L), 4, window_pad(L, k)}):
+                        if c is not codes and cap != 4:
+                            continue
+                        got = fused_sketch(c, n, k, f, cap)
+                        want = sketch_batch(c, n, k, f, cap)
+                        torch.cuda.synchronize()
+                        require(same_tensors(torch, got, want),
+                                f"K1 differs from sketch_batch at B={c.shape[0]} L={L} k={k} f={f} cap={cap}")
+                        record(results, "K1", max_abs_err=max_err(got, want))
+                        if cap == 4:
+                            require(int(got[2]) > 0, f"cap 4 did not overflow at L={L} k={k} f={f}")
+                        if f > 0.5 and cap == window_pad(L, k):
+                            widest = int(got[1].sum(dim=1).max())
+                            require(widest > 32, f"no read kept more than 32 hashes at L={L} k={k}")
+                for caps in {tuple(cfg.sketch_capacity_for(k, L) for k in ks), (4, 4)}:
+                    got = fused_sketch_multik(c, n, ks, f, caps)
+                    want = sketch_all_k(c, n, ks, f, caps)
+                    torch.cuda.synchronize()
+                    for g, w, k in zip(got, want, ks):
+                        require(same_tensors(torch, g, w),
+                                f"K2 differs from sketch_batch at B={c.shape[0]} L={L} k={k} f={f} caps={caps}")
+                        record(results, "K2", max_abs_err=max_err(g, w))
+                    if caps == (4, 4):
+                        require(min(int(g[2]) for g in got) > 0, f"K2 caps (4, 4) did not overflow at L={L} f={f}")
+            print(f"[kernels] K1, K2 [{BATCH}, {L}] and [{BATCH - 1}, {L}] at an offset, fraction {f}: bit-equal")
+        del codes, lengths
     for B, L in ((BATCH, 2048), (1, (1 << 22) + 30)):
         if B == 1:  # one build chunk: the index build's row
             codes = torch.from_numpy(rng.integers(0, 4, size=(1, L)).astype(np.uint8)).to(DEVICE)
             lengths = torch.full((1,), L, dtype=torch.int32, device=DEVICE)
         else:
             codes, lengths = _read_batch(torch, rng, B, L, 31)
-        got = nthash_sketch(codes, lengths, 31, f)
-        want = hash_plane(codes, lengths, 31, f)
+        got = nthash_sketch(codes, lengths, 31, cfg.sketch_fraction)
+        want = hash_plane(codes, lengths, 31, cfg.sketch_fraction)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"K3 differs from hash_plane at [{B}, {L}]")
         record(results, "K3", max_abs_err=max_err([got], [want]))
-        ms, plain_ms = time_pair_ms(torch, lambda: nthash_sketch(codes, lengths, 31, f),
-                                    lambda: hash_plane(codes, lengths, 31, f))
-        print(f"[kernels] K3 [{B}, {L}] k=31: bit-equal, {int((got != 0xFFFFFFFF).sum())} kept windows, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        print(f"[kernels] K3 [{B}, {L}] k=31: bit-equal, {int((got != 0xFFFFFFFF).sum())} kept windows")
         del codes, lengths, got, want
-    for name, dtype, lo, hi in (("K4", np.int32, -(2**31), 2**31 - 1), ("K4-int64", np.int64, -(2**63), 2**63 - 1)):
-        for W in (2, 32, 256, 1024, 16384) if name == "K4" else (2, 8, 64, 256, 1024, 2048, 4096, 16384):
-            x = torch.from_numpy(rng.integers(lo, hi, size=(BATCH, W), endpoint=True, dtype=dtype)).to(DEVICE)
-            x[: BATCH // 4] = torch.from_numpy(rng.integers(0, 3, size=(BATCH // 4, W)).astype(dtype)).to(DEVICE)
-            x[BATCH // 4 : BATCH // 4 + 16, ::2] = lo
-            x[BATCH // 4 : BATCH // 4 + 16, 1::2] = hi
-            got, want = row_sort(x), row_sort_plain(x)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want), f"{name} differs from torch.sort at W={W}")
+    # K4 at every width and three row counts (8191: a ragged last block;
+    # the 8191 rows after the first, at an offset of W keys).
+    for name, dtype in (("K4", torch.int32), ("K4-int64", torch.int64)):
+        for W in (1 << e for e in range(1, 15)):
+            x = _keys(torch, gen, BATCH, W, dtype)
+            for rows in (x, x[1:], x[:1], x[: BATCH - 1].clone()):
+                got = row_sort(rows)
+                require(torch.equal(got, row_sort_plain(rows)), f"{name} differs from torch.sort at [{rows.shape[0]}, {W}]")
             record(results, name, max_abs_err=0)
-            ms, plain_ms = time_pair_ms(torch, lambda: row_sort(x), lambda: row_sort_plain(x))
-            print(f"[kernels] {name} B={BATCH} W={W}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            del x, got, want
+            del x, rows, got
+        print(f"[kernels] {name} [B, W], B in (8192, 8191, 8191 at an offset, 1), W = 2 .. 16384: bit-equal")
     # row_sort_wide: K4-int64 over 16384-lane chunks + bitonic merges in torch.
     for B, W in ((BATCH, 1 << 15), (1024, 1 << 16)):
-        x = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, size=(B, W), endpoint=True, dtype=np.int64)).to(DEVICE)
-        x[:16] = torch.from_numpy(rng.integers(0, 3, size=(16, W)).astype(np.int64)).to(DEVICE)
+        x = _keys(torch, gen, B, W, torch.int64)
         got, want = row_sort_wide(x), row_sort_plain(x)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"row_sort_wide differs from torch.sort at [{B}, {W}]")
         del got, want
-        ms, plain_ms = time_pair_ms(torch, lambda: row_sort_wide(x), lambda: row_sort_plain(x), reps=5)
-        print(f"[kernels] row_sort_wide int64 [{B}, {W}]: bit-equal, K4-int64 chunks + merges {ms:.4f} ms, "
-              f"torch.sort {plain_ms:.4f} ms")
+        ms, sort_ms = in_turns(torch, row_sort_wide, row_sort_plain, [(x,)], "row_sort_kernel", reps=5)
+        print(f"[kernels] row_sort_wide int64 [{B}, {W}]: bit-equal; device ms: its K4-int64 chunk sort {ms:.4f}, "
+              f"torch.sort {sort_ms:.4f}")
         del x
+
+    # Device time per launch (torch.profiler; inputs cold in L2).
+    print(f"[kernels] device ms per call, torch.profiler over {REPS} calls, plain / kernel / kernel / plain")
+    for name, dtype in (("K4", torch.int32), ("K4-int64", torch.int64)):
+        widths = {}
+        for W in (1 << e for e in range(1, 15)):
+            x = _keys(torch, gen, BATCH, W, dtype)
+            nbytes, ops = sort_work(BATCH, W, x.element_size())
+            reps = REPS if nbytes < 2**28 else 10
+            ms, sort_ms = in_turns(torch, row_sort, row_sort_plain, rotation((x,), nbytes // 2), "row_sort_kernel",
+                                   reps)
+            b_ms, by = bound(nbytes, ops)
+            widths[W] = {"ms": ms, "torch_sort_ms": sort_ms, "bound_ms": b_ms, "bound_by": by}
+            print(f"[kernels] {name} [{BATCH}, {W}]: kernel {ms:.5f} ms, torch.sort {sort_ms:.5f} ms, bound "
+                  f"{b_ms:.5f} ms ({by}), {100 * b_ms / ms:.1f}% of bound")
+            del x
+        record(results, name, by_width=widths)
+    cases = main_shape_cases(torch)
+    p1 = parent_times(torch, parent) if parent else None
+    for name, (fn, plain, kern, arg_sets, (nbytes, ops), shape) in cases.items():
+        ms, plain_ms = in_turns(torch, fn, plain, arg_sets, kern)
+        b_ms, by = bound(nbytes, ops)
+        record(results, name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+               bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops,
+               library_ms=plain_ms if name.startswith("K4") else None, shape=shape)
+        print(f"[kernels] {name} {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us "
+              f"({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
+    if parent:
+        p2 = parent_times(torch, parent)
+        for name in cases:
+            record(results, name, parent_ms=(p1[name] + p2[name]) / 2)
+            print(f"[kernels] {name}: parent ({parent.name}) {p1[name]:.5f} / {p2[name]:.5f} ms, this tree "
+                  f"{results[name]['ms']:.5f} ms")
+    del cases
 
 
 def _csv_rows(path):
@@ -426,12 +647,12 @@ def phase_scale(torch, results):
     c, n, (cap,), rows = _first_batch(torch, "scale", index, config, codes, lengths, L)
     key = rows[torch.int32][0]  # the event grouping sort
     f = config.sketch_fraction
-    k1 = time_pair_ms(torch, lambda: fused_sketch(c, n, 31, f, cap), lambda: sketch_batch(c, n, 31, f, cap))
-    k4 = time_pair_ms(torch, lambda: row_sort(key), lambda: row_sort_plain(key))
-    print(f"[scale] main-path shapes: K1 [{BATCH}, {L}] cap {cap}: kernel {k1[0]:.4f} ms, plain {k1[1]:.4f} ms; "
-          f"K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.4f} ms, plain {k4[1]:.4f} ms")
-    record(results, "K1", launches=launches["K1"], ms=round(k1[0], 5), plain_ms=round(k1[1], 5),
-           shape=f"[{BATCH}, {L}] k=31 cap {cap}")
+    k1 = in_turns(torch, lambda c, n: fused_sketch(c, n, 31, f, cap), lambda c, n: sketch_batch(c, n, 31, f, cap),
+                  rotation((c, n), c.numel() + 4 * n.numel()), "sketch")
+    k4 = in_turns(torch, row_sort, row_sort_plain, rotation((key,), 4 * key.numel()), "row_sort_kernel")
+    print(f"[scale] first batch, device ms: K1 [{BATCH}, {L}] cap {cap}: kernel {k1[0]:.5f}, plain {k1[1]:.5f}; "
+          f"K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.5f}, plain {k4[1]:.5f}")
+    record(results, "K1", launches=launches["K1"])
 
 
 def c3_problem(torch, ctx):
@@ -484,20 +705,19 @@ def phase_scale_multik(torch, results, ctx):
     L = 104
     c, n, caps, rows = _first_batch(torch, "scale-multik", index, config, codes, lengths, L)
     f = config.sketch_fraction
-    k2 = time_pair_ms(torch, lambda: fused_sketch_multik(c, n, ks, f, caps), lambda: sketch_all_k(c, n, ks, f, caps))
+    k2 = in_turns(torch, lambda c, n: fused_sketch_multik(c, n, ks, f, caps),
+                  lambda c, n: sketch_all_k(c, n, ks, f, caps), rotation((c, n), c.numel() + 4 * n.numel()),
+                  "sketch")
     key = max(rows[torch.int32], key=lambda x: x.shape[1])  # the widest int32 sort of the batch
     tables = rows[torch.int64][0]  # the (tid << 32) | score rows of the combine
-    k4 = time_pair_ms(torch, lambda: row_sort(key), lambda: row_sort_plain(key))
-    k4w = time_pair_ms(torch, lambda: row_sort(tables), lambda: row_sort_plain(tables))
-    print(f"[scale-multik] main-path shapes: K2 [{BATCH}, {L}] ks {ks} caps {caps}: kernel {k2[0]:.4f} ms, "
-          f"plain {k2[1]:.4f} ms; K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.4f} ms, plain {k4[1]:.4f} ms; "
-          f"K4-int64 [{BATCH}, {tables.shape[1]}]: kernel {k4w[0]:.4f} ms, plain {k4w[1]:.4f} ms")
-    record(results, "K2", launches=launches["K2"], ms=round(k2[0], 5), plain_ms=round(k2[1], 5),
-           shape=f"[{BATCH}, {L}] ks {ks} caps {caps}")
-    record(results, "K4", launches=launches["K4"], ms=round(k4[0], 5), plain_ms=round(k4[1], 5),
-           shape=f"[{BATCH}, {key.shape[1]}] int32 event keys")
-    record(results, "K4-int64", launches=launches["K4-int64"], ms=round(k4w[0], 5), plain_ms=round(k4w[1], 5),
-           shape=f"[{BATCH}, {tables.shape[1]}] int64 (tid << 32) | score")
+    k4 = in_turns(torch, row_sort, row_sort_plain, rotation((key,), 4 * key.numel()), "row_sort_kernel")
+    k4w = in_turns(torch, row_sort, row_sort_plain, rotation((tables,), 8 * tables.numel()), "row_sort_kernel")
+    print(f"[scale-multik] first batch, device ms: K2 [{BATCH}, {L}] ks {ks} caps {caps}: kernel {k2[0]:.5f}, "
+          f"plain {k2[1]:.5f}; K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.5f}, plain {k4[1]:.5f}; "
+          f"K4-int64 [{BATCH}, {tables.shape[1]}]: kernel {k4w[0]:.5f}, plain {k4w[1]:.5f}")
+    record(results, "K2", launches=launches["K2"])
+    record(results, "K4", launches=launches["K4"])
+    record(results, "K4-int64", launches=launches["K4-int64"])
 
 
 def phase_spill(torch):
@@ -560,11 +780,11 @@ def phase_long_reads(torch, results):
             f"long reads did not sketch through K3 + K4-int64 alone: {launches}")
     L = read_len  # round_up(2000, 8)
     c, n, caps, _ = _first_batch(torch, "long-reads", index, config, codes, lengths, L)
-    k3 = time_pair_ms(torch, lambda: nthash_sketch(c, n, 31, config.sketch_fraction),
-                      lambda: hash_plane(c, n, 31, config.sketch_fraction))
-    print(f"[long-reads] main-path shape: K3 [{BATCH}, {L}] k=31: kernel {k3[0]:.4f} ms, plain {k3[1]:.4f} ms")
-    record(results, "K3", launches=launches["K3"], ms=round(k3[0], 5), plain_ms=round(k3[1], 5),
-           shape=f"[{BATCH}, {L}] k=31")
+    f = config.sketch_fraction
+    k3 = in_turns(torch, lambda c, n: nthash_sketch(c, n, 31, f), lambda c, n: hash_plane(c, n, 31, f),
+                  rotation((c, n), c.numel() + 4 * n.numel()), "nthash_sketch_kernel")
+    print(f"[long-reads] first batch, device ms: K3 [{BATCH}, {L}] k=31: kernel {k3[0]:.5f}, plain {k3[1]:.5f}")
+    record(results, "K3", launches=launches["K3"])
     del c, n
 
     # Reads past K4's 16384 windows: the dedup sorts through row_sort_wide.
@@ -828,20 +1048,27 @@ def profile_stream(torch, ctx):
     print(f"[profile] streamed quant of {packed.num_reads} reads: wall {wall:.4f} s traced, stages "
           f"{json.dumps({k: round(v, 4) for k, v in res.timing.items()})}; {len(events)} device operations, "
           f"busy {busy / 1e3:.2f} ms: idle {100 * (1 - busy / 1e6 / wall):.1f}%")
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     print(table)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default=",".join(PHASES), help=f"comma list of {', '.join(PHASES)}")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma list of {', '.join(PHASES)}; or main-shapes alone: only the kernels' device "
+                             "times at the main-path shapes, as JSON (what --parent runs in the other checkout)")
     parser.add_argument("--profile", action="store_true",
                         help="last, trace one steady streamed quant with torch.profiler")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a checkout of another commit holding this script: the kernels phase times its "
+                             "kernels at the main-path shapes too, before and after this tree's (parent_ms)")
     args = parser.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    unknown = sorted(set(phases) - set(PHASES))
+    unknown = sorted(set(phases) - set(PHASES) - {"main-shapes"})
     if unknown:
         parser.error(f"unknown phases {unknown}")
+    if "main-shapes" in phases and phases != ["main-shapes"]:
+        parser.error("main-shapes runs alone")
 
     import torch
 
@@ -855,6 +1082,12 @@ def main() -> int:
         Path(sketch_rna_tpu_torch.__file__).resolve().parent == ROOT / "sketch_rna_tpu_torch",
         "run chip_smoke.py from a checkout that holds sketch_rna_tpu_torch/",
     )
+    if phases == ["main-shapes"]:  # what --parent asks of another checkout
+        from sketch_rna_tpu_torch import kernels
+
+        kernels.library()
+        print(json.dumps({"main_shape_ms": main_shape_times(torch)}))
+        return 0
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
@@ -862,7 +1095,7 @@ def main() -> int:
                for name, (fn, src, rep) in KERNELS.items()}
     ctx = {}  # data that several phases share (the c3 index and reads)
     runs = {
-        "kernels": lambda: phase_kernels(torch, results),
+        "kernels": lambda: phase_kernels(torch, results, args.parent.resolve() if args.parent else None),
         "sample": phase_sample,
         "sample-multik": phase_sample_multik,
         "scale": lambda: phase_scale(torch, results),

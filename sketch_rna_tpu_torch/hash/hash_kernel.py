@@ -9,11 +9,21 @@ version, sketch/fracminhash.hash_plane.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from sketch_rna_tpu_torch import kernels
-from sketch_rna_tpu_torch.hash.sketch_kernel import check_batch, device_tables
+from sketch_rna_tpu_torch.hash.nthash import window_tables_u32
+from sketch_rna_tpu_torch.hash.sketch_kernel import check_batch
 from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold, hash_plane
+
+
+@functools.lru_cache(maxsize=None)
+def device_tables(k: int, device: torch.device) -> torch.Tensor:
+    """[k, 4] rotated-seed table as int32 bits (the kernel reads uint32)."""
+    return torch.from_numpy(window_tables_u32(k).view(np.int32).copy()).to(device)
 
 
 def nthash_sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: float) -> torch.Tensor:

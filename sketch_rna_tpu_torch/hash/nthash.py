@@ -74,3 +74,42 @@ def nthash_batch_u32(codes: torch.Tensor, k: int) -> torch.Tensor:
     for j in range(k):
         h ^= tables[j][c[:, j : j + nk]]
     return h
+
+
+def _rot33(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Rotate the 33-bit values x left by d (0 <= d < 33), elementwise."""
+    low = x & ((1 << (33 - d)) - 1)  # the bits that stay inside 33 after the shift
+    return (low << d) | (x >> (33 - d))
+
+
+def nthash_prefix_u32(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """nthash_batch_u32 by the O(1)-per-window formulation of the fused
+    sketch kernels K1 / K2 (csrc/sketch.cu).
+
+    srol is XOR-linear and srol^-q undoes srol^q, so with the prefix
+    P(m) = XOR_{q<m} srol^(-q)(seed[s_q]),
+
+        fh(i) = srol^(k-1+i)( P(i+k) ^ P(i) ).
+
+    The low 32 bits of srol^d(x) depend only on x's 33-bit low field,
+    which rotates by d mod 33; so P keeps that field alone, and one
+    prefix serves every k.  Nothing on the quant path calls this: it
+    pins the kernels' arithmetic to the windowed XOR on the CPU.
+    """
+    if codes.dim() != 2:
+        raise ValueError(f"codes must be [B, L], got {tuple(codes.shape)}")
+    B, L = codes.shape
+    nk = L - k + 1
+    if nk < 1:
+        raise ValueError(f"padded length {L} < k={k}")
+    device = codes.device
+    seeds = torch.tensor([s & _MASK33 for s in NTHASH_SEEDS], dtype=torch.int64, device=device)
+    pos = torch.arange(L + 1, dtype=torch.int64, device=device)
+    p = torch.zeros((B, L + 1), dtype=torch.int64, device=device)
+    p[:, 1:] = _rot33(seeds[codes.long() & 3], (-pos[:L]) % 33)
+    shift = 1
+    while shift <= L:  # inclusive XOR scan along the row
+        p[:, shift:] = p[:, shift:] ^ p[:, :-shift]
+        shift *= 2
+    i = pos[:nk]
+    return _rot33(p[:, k:] ^ p[:, :nk], (k - 1 + i) % 33) & 0xFFFFFFFF

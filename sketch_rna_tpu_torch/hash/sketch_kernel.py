@@ -10,26 +10,18 @@ return exactly the same hashes, masks and overflow counts.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from sketch_rna_tpu_torch import kernels
-from sketch_rna_tpu_torch.hash.nthash import window_tables_u32
 from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold, sketch_all_k, sketch_batch
 
-# One sorted lane per thread of a block; longer reads take the hash-plane
-# kernel K3 and a K4 dedup (sketch/dispatch.py).
+# Windows per read (padded to a power of two) that a warp's shared buffer
+# holds; longer reads take the hash-plane kernel K3 and a K4 dedup
+# (sketch/dispatch.py).
 MAX_WINDOWS = 1024
 MAX_KS = 8  # ks per K2 launch (csrc/sketch.cu kMaxKs)
-
-
-@functools.lru_cache(maxsize=None)
-def device_tables(k: int, device: torch.device) -> torch.Tensor:
-    """[k, 4] rotated-seed table as int32 bits (the kernels read uint32)."""
-    return torch.from_numpy(window_tables_u32(k).view(np.int32).copy()).to(device)
 
 
 def check_batch(codes: torch.Tensor, lengths: torch.Tensor) -> None:
@@ -56,14 +48,12 @@ def window_pad(L: int, k: int) -> int:
     return 1 << (nk - 1).bit_length()
 
 
-def _fused_pad(L: int, k: int) -> int:
-    nk_pad = window_pad(L, k)
-    if nk_pad > MAX_WINDOWS:
+def _check_windows(L: int, k: int) -> None:
+    if window_pad(L, k) > MAX_WINDOWS:
         raise ValueError(
             f"{L - k + 1} windows per read exceed the fused sketch kernels' {MAX_WINDOWS}; "
             "longer reads take the hash-plane kernel K3 and a K4 dedup (sketch.dispatch.sketch_reads)"
         )
-    return nk_pad
 
 
 def _outputs(B: int, capacity: int, device: torch.device):
@@ -89,7 +79,7 @@ def fused_sketch(
     """
     check_batch(codes, lengths)
     B, L = codes.shape
-    nk_pad = _fused_pad(L, k)
+    _check_windows(L, k)
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     if codes.device.type == "cpu":
@@ -99,7 +89,6 @@ def fused_sketch(
         err = kernels.library().fused_sketch_launch(
             codes.data_ptr(),
             lengths.data_ptr(),
-            device_tables(k, codes.device).data_ptr(),
             hashes.data_ptr(),
             mask.data_ptr(),
             overflow.data_ptr(),
@@ -108,7 +97,6 @@ def fused_sketch(
             k,
             fracminhash_threshold(fraction),
             capacity,
-            nk_pad,
             torch.cuda.current_stream(codes.device).cuda_stream,
         )
         kernels.check(err, "fused_sketch")
@@ -133,7 +121,8 @@ def fused_sketch_multik(
     ks, caps = tuple(ks), tuple(caps)
     if not 1 <= len(ks) <= MAX_KS or len(caps) != len(ks):
         raise ValueError(f"need 1 to {MAX_KS} ks and one capacity per k, got ks={ks} caps={caps}")
-    nk_pads = [_fused_pad(L, k) for k in ks]
+    for k in ks:
+        _check_windows(L, k)
     if min(caps) < 1:
         raise ValueError(f"capacities must be >= 1, got {caps}")
     if codes.device.type == "cpu":
@@ -149,8 +138,6 @@ def fused_sketch_multik(
             n,
             ints(*ks),
             ints(*caps),
-            ints(*nk_pads),
-            ptrs(*(device_tables(k, codes.device).data_ptr() for k in ks)),
             ptrs(*(h.data_ptr() for h, _, _ in outs)),
             ptrs(*(m.data_ptr() for _, m, _ in outs)),
             ptrs(*(o.data_ptr() for _, _, o in outs)),

@@ -66,9 +66,13 @@ def _build_k(flat, owner, end_of, tids, k: int, fraction: float) -> KIndex:
     return KIndex(keys=keys, row_ptr=row_ptr, postings=postings)
 
 
-def build_index(records: FastaRecords, config: QuantConfig, device="cpu") -> IndexArtifact:
+def build_index(records: FastaRecords, config: QuantConfig, device="cuda") -> IndexArtifact:
+    """The index of `records` at every k of config, built on `device`: the
+    card unless the caller asks for the CPU (K3's plain version)."""
     ks = tuple(sorted(config.kmer_lengths))
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_index: no CUDA device; pass device='cpu' to build on the CPU")
     seq_codes = [encode_sequence(seq) for seq in records.seqs]
     if any(c is None for c in seq_codes):
         raise ValueError("records hold a non-ACGT sequence (load_fasta drops those)")

@@ -38,12 +38,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # codes, lengths, tables, out_hashes, out_mask, out_overflow,
-    # B, L, k, threshold, cap, nk_pad, stream
-    "fused_sketch_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _I, _P],
-    # codes, lengths, num_k, ks, caps, nk_pads, tables, out_hashes,
-    # out_masks, out_overflows (host arrays of num_k), B, L, threshold, stream
-    "fused_sketch_multik_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint, _P],
+    # codes, lengths, out_hashes, out_mask, out_overflow, B, L, k, threshold, cap, stream
+    "fused_sketch_launch": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _P],
+    # codes, lengths, num_k, ks, caps, out_hashes, out_masks, out_overflows
+    # (host arrays of num_k), B, L, threshold, stream
+    "fused_sketch_multik_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint, _P],
     # codes, lengths, tables, out, B, L, k, threshold, stream
     "nthash_sketch_launch": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _P],
     # x, out, B, W, stream

@@ -46,9 +46,21 @@ def synth_records():
     return names, text
 
 
+def test_build_index_defaults_to_the_card(monkeypatch):
+    """With no device given, build_index builds on CUDA: without a CUDA
+    device it raises rather than running on the CPU."""
+    import inspect
+
+    assert inspect.signature(build_index).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    records = load_fasta(os.path.join(EXAMPLES, "sample.fa"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_index(records, QuantConfig(kmer_lengths=(31,)))
+
+
 def test_build_sample_equals_jax():
     fa = os.path.join(EXAMPLES, "sample.fa")
-    port = build_index(load_fasta(fa), QuantConfig(kmer_lengths=(31,)))
+    port = build_index(load_fasta(fa), QuantConfig(kmer_lengths=(31,)), device="cpu")
     ref = jax_build_index(jax_load_fasta(fa), JaxConfig(kmer_lengths=(31,)))
     _assert_same_index(port, ref, 31)
 
@@ -56,7 +68,7 @@ def test_build_sample_equals_jax():
 @pytest.mark.parametrize("k", [21, 31])
 def test_build_synthetic_equals_jax(synth_records, k):
     names, text = synth_records
-    port = build_index(FastaRecords(names, text, 0), QuantConfig(kmer_lengths=(k,)))
+    port = build_index(FastaRecords(names, text, 0), QuantConfig(kmer_lengths=(k,)), device="cpu")
     ref = jax_build_index(JaxRecords(names, text, 0), JaxConfig(kmer_lengths=(k,)))
     _assert_same_index(port, ref, k)
     assert port.per_k[k].num_keys > 0
@@ -79,6 +91,7 @@ def test_npz_round_trips_between_packages(synth_records, tmp_path):
     np.testing.assert_array_equal(kd.postings.numpy(), kr.postings)
 
     port_path = str(tmp_path / "port.npz")
-    save_index(port_path, build_index(FastaRecords(names, text, 0), QuantConfig(kmer_lengths=(31,))))
+    port = build_index(FastaRecords(names, text, 0), QuantConfig(kmer_lengths=(31,)), device="cpu")
+    save_index(port_path, port)
     _assert_same_index(load_index(port_path), jax_load_index(port_path), 31)
     _assert_same_index(load_index(port_path), ref, 31)

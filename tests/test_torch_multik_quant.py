@@ -55,7 +55,7 @@ def problem():
 
 def test_build_index_multik_equals_jax(problem):
     seqs, names, ref = problem
-    port = build_index(FastaRecords(names, _text(seqs), 0), QuantConfig(kmer_lengths=(31, 21)))
+    port = build_index(FastaRecords(names, _text(seqs), 0), QuantConfig(kmer_lengths=(31, 21)), device="cpu")
     assert port.kmer_lengths == ref.kmer_lengths == KS
     np.testing.assert_array_equal(port.lengths, ref.lengths)
     for k in KS:

@@ -15,7 +15,7 @@ from sketch_rna_tpu.hash.nthash import nthash_batch_u32 as jax_nthash
 from sketch_rna_tpu.hash.pallas_hash import sketch_batch_pallas
 from sketch_rna_tpu.sketch.fracminhash import sketch_batch as jax_sketch_batch
 from sketch_rna_tpu_torch.config import QuantConfig
-from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32
+from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32, nthash_prefix_u32
 from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch
 from sketch_rna_tpu_torch.sketch.fracminhash import sketch_batch
 
@@ -42,6 +42,25 @@ def test_nthash_bit_equal(k):
     got = nthash_batch_u32(torch.from_numpy(codes), k).numpy()
     want = np.asarray(jax_nthash(jnp.asarray(codes), k)).astype(np.int64)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [15, 21, 25, 31])
+@pytest.mark.parametrize("L_of", ["k", "104", "152", "1100"])
+def test_nthash_prefix_equals_windowed_xor(k, L_of):
+    """The prefix-XOR form of the fused sketch kernels (srol^-m terms, one
+    33-bit prefix for every k) is bit-equal to the windowed XOR and to the
+    JAX package's hash, for a read of exactly k bases up to past 1024
+    windows."""
+    L = k if L_of == "k" else int(L_of)
+    rng = np.random.default_rng(100 * k + L)
+    codes = rng.integers(0, 4, size=(6, L)).astype(np.uint8)
+    codes[0] = 0  # all-equal bases
+    codes[1] = np.arange(L) % 4
+    got = nthash_prefix_u32(torch.from_numpy(codes), k)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (6, L - k + 1)
+    np.testing.assert_array_equal(got.numpy(), nthash_batch_u32(torch.from_numpy(codes), k).numpy())
+    want = np.asarray(jax_nthash(jnp.asarray(codes), k)).astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _caps(k):
