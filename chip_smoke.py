@@ -3,24 +3,31 @@
 
     python3 chip_smoke.py                    # from the repository root; needs one card
     python3 chip_smoke.py --phases kernels   # a subset (device and build always run)
-    python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's kernels timed beside these
-    python3 chip_smoke.py --phases main-shapes           # only the main-path kernel times, as JSON
+    python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's shared functions timed beside these
+    python3 chip_smoke.py --phases shared-shapes         # only the shared functions' times, as JSON
 
 Phases, in order; any failure raises and the script exits nonzero
 without printing its result line:
 
   device        torch / CUDA versions, the card's name and power limit;
   build         nvcc builds the kernels in csrc/, one process per source;
-  kernels       K1 (fused sketch), K2 (multi-k fused sketch), K3 (hash
-                plane), K4 (row sort, int32) and K4-int64 against their
-                plain PyTorch versions on the card, bit for bit, over the
-                edges of their domains (K1 / K2 at 104, 152 and 1028
-                bases, fractions 0.05 and 0.9999, caps that overflow; K4
-                at every width 2 .. 16384 and 8192, 8191 or 1 rows); then
-                each kernel's device time at its main-path shape beside
-                its plain version's, torch.sort's for K4, and its bound,
-                and K4 against torch.sort at every width.  Device time is
-                torch.profiler's per kernel over 50 calls whose inputs
+  kernels       K1 (fused sketch), K2 (multi-k fused sketch), K3 (kept
+                windows), K4 (row sort, int32), K4-int64 and the merge
+                kernel against their plain PyTorch versions on the card,
+                bit for bit, over the edges of their domains (K1 / K2 at
+                104, 152 and 1028 bases, fractions 0.05 and 0.9999, caps
+                that overflow; K3 at [8192, 2048] and [8191, 2001] at an
+                offset and one 4-megabase index-build row, also at an odd
+                offset, fractions 0.05 and 0.9999; K4 at every width 2 ..
+                16384 and 8192, 8191 or 1 rows; the merge at row widths 2
+                .. 65536, row_sort_wide and an int32 sort_event_parts);
+                then each kernel's device time at its main-path shape
+                beside its plain version's, torch.sort's for K4 and the
+                merge, and its bound, and K4 against torch.sort at every
+                width; then the functions both trees share (K3's call,
+                sketch_reads of 2 kb and 20 kb reads, row_sort_wide), with
+                --parent also in DIR.  Device time is torch.profiler's, per
+                kernel launch or per whole call, over 50 calls whose inputs
                 rotate through copies past the L2 cache, timed in turns
                 plain, kernel, kernel, plain; the host is left out;
   sample        the port's CLI on examples/sample.{fa,fq}, k=31: the
@@ -34,13 +41,15 @@ without printing its result line:
                 (synth_transcriptome, seed 22) + 2,097,152 reads of 100 bp,
                 k=(21, 31), batch 8192, float32 EM;
   spill         300 transcripts sharing an 80-base core, ks (15, 31),
-                C=8: per-k tables spill and the batch regroups merged,
-                equal to a forced merged run;
+                C=8: per-k tables spill and the batch regroups merged
+                (sort_event_parts: K4 + the merge kernel), equal to a
+                forced merged run;
   long-reads    2,000 synthetic transcripts (families of 3-8 kb) + 100,000
                 reads of 2,000 bp from those that hold one, k=31: reads past
-                1024 windows sketch through K3 + K4-int64 alone; then
-                2,000 reads of 20,000 bp (nk_pad 32768) at k=31, whose dedup
-                sorts through row_sort_wide (K4-int64 chunks + merges);
+                1024 windows sketch through K3 + K4-int64 alone, the dedup
+                sorting at most 256 lanes; then 2,000 reads of 20,000 bp
+                (nk_pad 32768) at k=31, whose kept hashes (~1,000 a read)
+                sort on K4-int64 without a merge;
   stream        the scale-multik index and reads at float64 EM: the
                 streamed engine (default knobs; a 2^16-row class buffer that
                 compacts and drains; one full-width buffer) equals the fused
@@ -68,9 +77,10 @@ candidate tables against the plain functions on the same tensors.
 
 Then one JSON line per kernel ({"kernels": [...]}: launches on the main
 path, device ms, plain ms, bound in ms and us with the bytes and
-operations behind it, share of bound, library_ms (torch.sort for K4) and,
-with --parent, parent_ms), the nvidia-smi line of the card, and last
-{"ok": true, "device": {...}}.  Imports no JAX.
+operations behind it, share of bound, library_ms (torch.sort for K4 and
+the merge), the shared functions' ms and, with --parent, the parent's),
+the nvidia-smi line of the card, and last {"ok": true, "device": {...}}.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -113,6 +123,8 @@ KERNELS = {
     "K4": ("row_sort", "sketch_rna_tpu_torch/csrc/row_sort.cu", "sketch_rna_tpu/match/pallas_sort.py:49"),
     "K4-int64": ("row_sort (int64 keys)", "sketch_rna_tpu_torch/csrc/row_sort.cu",
                  "sketch_rna_tpu/match/pallas_sort.py:49"),
+    # No TPU kernel merges: the JAX package's bitonic merge of sorted parts runs in XLA.
+    "merge": ("merge_pairs", "sketch_rna_tpu_torch/csrc/merge.cu", "sketch_rna_tpu/match/rowmatch.py:122"),
 }
 
 
@@ -232,15 +244,30 @@ def sketch_work(B: int, L: int, ks, caps):
     return nbytes, 8 * B * L + sum(8 * B * (L - k + 1) for k in ks)
 
 
+def kept_work(B: int, L: int, k: int, m: int):
+    """(bytes, integer operations) of K3 over [B, L] reads at k with an
+    output width of m: codes and lengths in, [B, m] int64 hashes, [B, m]
+    int32 windows and [B] int32 counts out; ~8 operations per position
+    (the prefix XOR) and per window (its hash, threshold and ballot)."""
+    return B * L + 4 * B + 12 * B * m + 4 * B, 8 * B * L + 8 * B * (L - k + 1)
+
+
+def merge_work(N: int, W: int, itemsize: int):
+    """(bytes, integer operations) of merging the halves of [N, W] rows:
+    each key read and written once; one comparison per output, one
+    operation on 32-bit words (two on int64)."""
+    return 2 * N * W * itemsize, N * W * (itemsize // 4)
+
+
 def counters():
     """Each kernel wrapper's launch count (name -> (object, attribute))."""
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
-    from sketch_rna_tpu_torch.match.row_sort import row_sort
+    from sketch_rna_tpu_torch.match.row_sort import merge_pairs, row_sort
 
     return {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
             "K3": (nthash_sketch, "launches"), "K4": (row_sort, "launches"),
-            "K4-int64": (row_sort, "launches_i64")}
+            "K4-int64": (row_sort, "launches_i64"), "merge": (merge_pairs, "launches")}
 
 
 def reset_launches() -> None:
@@ -323,17 +350,17 @@ def _keys(torch, gen, B, W, dtype):
 
 def main_shape_cases(torch):
     """Each kernel at its main-path shape, inputs made from SEED: name ->
-    (kernel callable, plain callable, kernel-name substring, argument
-    copies, (bytes, operations), shape).  K1 and K4 run on the single-k
-    path, K2, K4 and K4-int64 on the multi-k one (PERF.md §6), K3 on long
-    reads."""
+    (kernel callable, plain callable, kernel-name substring or None for
+    the whole call, argument copies, (bytes, operations), shape).  K1 and
+    K4 run on the single-k path, K2, K4 and K4-int64 on the multi-k one
+    (PERF.md §6), K3 on long reads, the merge in row_sort_wide's round."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
-    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
-    from sketch_rna_tpu_torch.sketch.fracminhash import hash_plane, sketch_all_k, sketch_batch
+    from sketch_rna_tpu_torch.match.row_sort import bitonic_merge_pair, merge_pairs, row_sort, row_sort_plain
+    from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept, sketch_all_k, sketch_batch
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -344,55 +371,103 @@ def main_shape_cases(torch):
     caps = tuple(cfg.sketch_capacity_for(k, L) for k in ks)
     reads = _read_batch(torch, rng, BATCH, L, 31)
     long_reads = _read_batch(torch, rng, BATCH, 2000, 31)
+    m = nthash_sketch(*long_reads, 31, f)[0].shape[1]  # the kept pairs' width at these inputs
     cases = {
         "K1": (lambda c, n: fused_sketch(c, n, 31, f, cap), lambda c, n: sketch_batch(c, n, 31, f, cap),
                "sketch", reads, sketch_work(BATCH, L, (31,), (cap,)), f"[{BATCH}, {L}] k=31 cap {cap}"),
         "K2": (lambda c, n: fused_sketch_multik(c, n, ks, f, caps), lambda c, n: sketch_all_k(c, n, ks, f, caps),
                "sketch", reads, sketch_work(BATCH, L, ks, caps), f"[{BATCH}, {L}] ks {ks} caps {caps}"),
-        "K3": (lambda c, n: nthash_sketch(c, n, 31, f), lambda c, n: hash_plane(c, n, 31, f),
-               "nthash_sketch_kernel", long_reads,
-               (BATCH * 2000 + 4 * BATCH + 8 * BATCH * 1970, 8 * BATCH * (2000 + 1970)), f"[{BATCH}, 2000] k=31"),
+        "K3": (lambda c, n: nthash_sketch(c, n, 31, f), lambda c, n: hash_kept(c, n, 31, f), None, long_reads,
+               kept_work(BATCH, 2000, 31, m), f"[{BATCH}, 2000] k=31 -> [{BATCH}, {m}] kept pairs"),
     }
     for name, dtype in (("K4", torch.int32), ("K4-int64", torch.int64)):
         x = _keys(torch, gen, BATCH, 256, dtype)
         cases[name] = (row_sort, row_sort_plain, "row_sort_kernel", (x,),
                        sort_work(BATCH, 256, x.element_size()), f"[{BATCH}, 256] {str(dtype)[6:]}")
+    w = 1 << 14
+    x = _halves(torch, _keys(torch, gen, BATCH, 2 * w, torch.int64), w)
+    cases["merge"] = (merge_pairs, lambda x: bitonic_merge_pair(x[:, :w], x[:, w:]), "merge_kernel", (x,),
+                      merge_work(BATCH, 2 * w, 8), f"[{BATCH}, {2 * w}] int64 (row_sort_wide's round)")
     return {name: (fn, plain, kern, rotation(args, sum(a.numel() * a.element_size() for a in args)), work, shape)
             for name, (fn, plain, kern, args, work, shape) in cases.items()}
 
 
-def main_shape_times(torch):
-    """The kernels' device ms at their main-path shapes (two turns each):
-    what the main-shapes phase prints for a comparison run."""
-    times = {}
-    for name, (fn, _, kern, arg_sets, _, _) in main_shape_cases(torch).items():
-        times[name] = (device_ms(torch, fn, arg_sets, kern) + device_ms(torch, fn, arg_sets, kern)) / 2
-    return times
+def shared_cases(torch):
+    """Functions that take one signature in this tree and in its parent, at
+    the long-read shapes, inputs made from SEED: name -> (callable,
+    argument copies, calls per trace).  Each is timed per whole call."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
+    from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
+    from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    cfg = QuantConfig()
+    f = cfg.sketch_fraction
+    cases = {}
+    for B, L in ((BATCH, 2000), (2000, 20000)):
+        reads = rotation(_read_batch(torch, rng, B, L, 31), B * L + 4 * B)
+        cap = cfg.sketch_capacity_for(31, L)
+        if L == 2000:
+            cases[f"K3 [{B}, {L}] k=31"] = (lambda c, n: nthash_sketch(c, n, 31, f), reads, REPS)
+        cases[f"sketch_reads [{B}, {L}] k=31"] = (lambda c, n, cap=cap: sketch_reads(c, n, (31,), f, (cap,)), reads,
+                                                 REPS if L == 2000 else 5)
+    x = _keys(torch, gen, BATCH, 1 << 15, torch.int64)
+    cases[f"row_sort_wide [{BATCH}, {1 << 15}] int64"] = (row_sort_wide, [(x,)], 5)
+    return cases
+
+
+def shared_times(torch):
+    """shared_cases' device ms per whole call, two traces each: what the
+    shared-shapes phase prints for a comparison run."""
+    return {name: (device_ms(torch, fn, args, reps=reps) + device_ms(torch, fn, args, reps=reps)) / 2
+            for name, (fn, args, reps) in shared_cases(torch).items()}
 
 
 def parent_times(torch, parent: Path):
-    """main_shape_times of the kernels in `parent`, a checkout of another
-    commit holding this script, in a process of its own on this card."""
+    """shared_times of `parent`, a checkout of another commit holding this
+    script, in a process of its own on this card."""
     torch.cuda.empty_cache()
-    run = subprocess.run([sys.executable, str(parent / "chip_smoke.py"), "--phases", "main-shapes"], cwd=parent,
+    run = subprocess.run([sys.executable, str(parent / "chip_smoke.py"), "--phases", "shared-shapes"], cwd=parent,
                          capture_output=True, text=True, timeout=600)
-    require(run.returncode == 0, f"the kernels of {parent} did not run: {run.stdout[-1500:]}{run.stderr[-1500:]}")
-    line = [ln for ln in run.stdout.splitlines() if ln.startswith('{"main_shape_ms"')]
+    require(run.returncode == 0, f"the functions of {parent} did not run: {run.stdout[-1500:]}{run.stderr[-1500:]}")
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith('{"shared_ms"')]
     require(bool(line), f"no timing line from {parent}")
-    return json.loads(line[-1])["main_shape_ms"]
+    return json.loads(line[-1])["shared_ms"]
+
+
+def _odd_offset(torch, x):
+    """A copy of x ([B, W]) whose first element sits one element past a
+    16-byte boundary, so no row of it is aligned to 16 bytes as allocated."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _halves(torch, x, w):
+    """x ([B, 2w]) with each row's two w-lane halves sorted by torch.sort:
+    merge_pairs' input."""
+    return torch.sort(x.view(-1, w), dim=1).values.view(x.shape[0], 2 * w)
 
 
 def phase_kernels(torch, results, parent=None):
     """Every kernel against its plain version, bit for bit, at the edges
     of its domain; then device times (the host left out) at the main-path
-    shapes and, for K4, at every width beside torch.sort."""
+    shapes and, for K4, at every width beside torch.sort; then the
+    functions both trees share, with --parent also in the parent."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik, window_pad
-    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain, row_sort_wide
-    from sketch_rna_tpu_torch.sketch.fracminhash import hash_plane, sketch_all_k, sketch_batch
+    from sketch_rna_tpu_torch.match.row_sort import (bitonic_merge_pair, merge_pairs, row_sort, row_sort_plain,
+                                                     row_sort_wide)
+    from sketch_rna_tpu_torch.match.rowmatch import I32_MAX, sort_event_parts
+    from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept, sketch_all_k, sketch_batch
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -433,19 +508,42 @@ def phase_kernels(torch, results, parent=None):
                         require(min(int(g[2]) for g in got) > 0, f"K2 caps (4, 4) did not overflow at L={L} f={f}")
             print(f"[kernels] K1, K2 [{BATCH}, {L}] and [{BATCH - 1}, {L}] at an offset, fraction {f}: bit-equal")
         del codes, lengths
-    for B, L in ((BATCH, 2048), (1, (1 << 22) + 30)):
-        if B == 1:  # one build chunk: the index build's row
-            codes = torch.from_numpy(rng.integers(0, 4, size=(1, L)).astype(np.uint8)).to(DEVICE)
-            lengths = torch.full((1,), L, dtype=torch.int32, device=DEVICE)
-        else:
-            codes, lengths = _read_batch(torch, rng, B, L, 31)
-        got = nthash_sketch(codes, lengths, 31, cfg.sketch_fraction)
-        want = hash_plane(codes, lengths, 31, cfg.sketch_fraction)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"K3 differs from hash_plane at [{B}, {L}]")
-        record(results, "K3", max_abs_err=max_err([got], [want]))
-        print(f"[kernels] K3 [{B}, {L}] k=31: bit-equal, {int((got != 0xFFFFFFFF).sum())} kept windows")
+    # K3 against hash_kept, both output widths: a read batch; a ragged one
+    # whose rows all start at odd addresses; one index-build chunk as a
+    # row, aligned and at an odd address; fractions 0.05 and 0.9999.
+    for f in (cfg.sketch_fraction, 0.9999):
+        for B, L in ((BATCH, 2048), (BATCH - 1, 2002), (1, (1 << 22) + 30)):
+            if B == 1:
+                codes = torch.from_numpy(rng.integers(0, 4, size=(1, L)).astype(np.uint8)).to(DEVICE)
+                lengths = torch.full((1,), L, dtype=torch.int32, device=DEVICE)
+                views = ((codes, lengths), (_odd_offset(torch, codes), lengths))
+            else:
+                codes, lengths = _read_batch(torch, rng, B, L, 31)
+                views = ((codes, lengths),) if L == 2048 else ((_odd_offset(torch, codes), lengths),)
+            for c, n in views:
+                for pow2 in (False, True):
+                    got = nthash_sketch(c, n, 31, f, pow2)
+                    want = hash_kept(c, n, 31, f, pow2)
+                    torch.cuda.synchronize()
+                    require(got[0].shape == want[0].shape and same_tensors(torch, got, want),
+                            f"K3 differs from hash_kept at [{B}, {L}] f={f} pow2={pow2} address {c.data_ptr() % 16} "
+                            "mod 16")
+                    record(results, "K3", max_abs_err=max_err(got, want))
+                print(f"[kernels] K3 [{B}, {L}] k=31 fraction {f}, rows from address {c.data_ptr() % 16} mod 16: "
+                      f"bit-equal, {int(got[2].sum())} kept windows, width {want[0].shape[1]} (pow2)")
+            del codes, lengths, views, c, n, got, want
+    # Other ks: the first hash's k codes span one to seven 16-byte chunks.
+    for k in (1, 15, 21, 33, 47, 64, 100):
+        codes, lengths = _read_batch(torch, rng, 257, 3002, k)
+        codes = _odd_offset(torch, codes)
+        for f in (cfg.sketch_fraction, 0.9999):
+            got, want = nthash_sketch(codes, lengths, k, f), hash_kept(codes, lengths, k, f)
+            torch.cuda.synchronize()
+            require(got[0].shape == want[0].shape and same_tensors(torch, got, want),
+                    f"K3 differs from hash_kept at [257, 3002] k={k} f={f}")
         del codes, lengths, got, want
+    print("[kernels] K3 [257, 3002] from an odd address, k in (1, 15, 21, 33, 47, 64, 100), fractions 0.05 and "
+          "0.9999: bit-equal")
     # K4 at every width and three row counts (8191: a ragged last block;
     # the 8191 rows after the first, at an offset of W keys).
     for name, dtype in (("K4", torch.int32), ("K4-int64", torch.int64)):
@@ -457,17 +555,44 @@ def phase_kernels(torch, results, parent=None):
             record(results, name, max_abs_err=0)
             del x, rows, got
         print(f"[kernels] {name} [B, W], B in (8192, 8191, 8191 at an offset, 1), W = 2 .. 16384: bit-equal")
-    # row_sort_wide: K4-int64 over 16384-lane chunks + bitonic merges in torch.
+    # The merge kernel against bitonic_merge_pair at every row width 2 ..
+    # 65536 (one row, B rows, B - 1 rows from an odd address; B shrinks
+    # past 8192 lanes); row_sort_wide and sort_event_parts against torch.sort.
+    for dtype in (torch.int32, torch.int64):
+        for W in (1 << e for e in range(1, 17)):
+            B = BATCH if W <= 1 << 13 else (1 << 26) // W
+            x = _halves(torch, _keys(torch, gen, B, W, dtype), W // 2)
+            for rows in (x, x[:1], _odd_offset(torch, x[1:])):
+                got = merge_pairs(rows)
+                require(torch.equal(got, bitonic_merge_pair(rows[:, : W // 2], rows[:, W // 2 :])),
+                        f"merge_pairs differs from bitonic_merge_pair at [{rows.shape[0]}, {W}] {dtype}")
+            del x, rows, got
+        print(f"[kernels] merge {str(dtype)[6:]} [B, W], W = 2 .. 65536, one row, B rows and B - 1 from an odd "
+              "address: bit-equal")
+    record(results, "merge", max_abs_err=0)
+    for widths in ((512, 300), (256, 130, 256)):
+        parts = [_keys(torch, gen, BATCH, w, torch.int32) for w in widths]
+        span = (1 << (len(widths) - 1).bit_length()) * max(widths)
+        fill = torch.full((BATCH, span - sum(widths)), I32_MAX, dtype=torch.int32, device=DEVICE)
+        got = sort_event_parts(parts)
+        require(torch.equal(got, row_sort_plain(torch.cat(parts + [fill], dim=1))),
+                f"sort_event_parts differs from torch.sort at part widths {widths}")
+        print(f"[kernels] sort_event_parts int32 [{BATCH}] x part widths {widths} -> [{BATCH}, {span}]: "
+              "equal to torch.sort")
+    del parts, fill, got
+    wide = {}
     for B, W in ((BATCH, 1 << 15), (1024, 1 << 16)):
         x = _keys(torch, gen, B, W, torch.int64)
         got, want = row_sort_wide(x), row_sort_plain(x)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"row_sort_wide differs from torch.sort at [{B}, {W}]")
         del got, want
-        ms, sort_ms = in_turns(torch, row_sort_wide, row_sort_plain, [(x,)], "row_sort_kernel", reps=5)
-        print(f"[kernels] row_sort_wide int64 [{B}, {W}]: bit-equal; device ms: its K4-int64 chunk sort {ms:.4f}, "
-              f"torch.sort {sort_ms:.4f}")
+        ms, sort_ms = in_turns(torch, row_sort_wide, row_sort_plain, [(x,)], None, reps=5)
+        wide[f"[{B}, {W}] int64"] = {"ms": ms, "torch_sort_ms": sort_ms}
+        print(f"[kernels] row_sort_wide int64 [{B}, {W}]: bit-equal; device ms per call: {ms:.4f} (K4-int64 chunks "
+              f"+ {int(math.log2(W >> 14))} merge launches), torch.sort {sort_ms:.4f}")
         del x
+    record(results, "merge", row_sort_wide=wide)
 
     # Device time per launch (torch.profiler; inputs cold in L2).
     print(f"[kernels] device ms per call, torch.profiler over {REPS} calls, plain / kernel / kernel / plain")
@@ -486,22 +611,42 @@ def phase_kernels(torch, results, parent=None):
             del x
         record(results, name, by_width=widths)
     cases = main_shape_cases(torch)
-    p1 = parent_times(torch, parent) if parent else None
     for name, (fn, plain, kern, arg_sets, (nbytes, ops), shape) in cases.items():
-        ms, plain_ms = in_turns(torch, fn, plain, arg_sets, kern)
+        reps = REPS if nbytes < 2**28 else 10
+        ms, plain_ms = in_turns(torch, fn, plain, arg_sets, kern, reps)
         b_ms, by = bound(nbytes, ops)
+        library_ms = None
+        if name.startswith("K4"):
+            library_ms = plain_ms
+        elif name == "merge":
+            library_ms = device_ms(torch, row_sort_plain, arg_sets, reps=reps)
         record(results, name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
-               bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops,
-               library_ms=plain_ms if name.startswith("K4") else None, shape=shape)
-        print(f"[kernels] {name} {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us "
-              f"({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
-    if parent:
-        p2 = parent_times(torch, parent)
-        for name in cases:
-            record(results, name, parent_ms=(p1[name] + p2[name]) / 2)
-            print(f"[kernels] {name}: parent ({parent.name}) {p1[name]:.5f} / {p2[name]:.5f} ms, this tree "
-                  f"{results[name]['ms']:.5f} ms")
+               bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, library_ms=library_ms, shape=shape,
+               timed="per call" if kern is None else "per launch")
+        print(f"[kernels] {name} {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              + (f"torch.sort {library_ms:.5f} ms, " if library_ms is not None else "")
+              + f"bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
+        if name == "K3":  # its two passes, per launch
+            passes = {p: device_ms(torch, fn, arg_sets, f"hash_kept_kernel<{w}>") for p, w in
+                      (("count_pass_ms", "false"), ("write_pass_ms", "true"))}
+            record(results, name, **passes)
+            print(f"[kernels] K3 passes, device ms per launch: count {passes['count_pass_ms']:.5f}, "
+                  f"write {passes['write_pass_ms']:.5f}")
     del cases
+
+    # The functions both trees share, per whole call; with --parent, the
+    # parent's before and after this tree's.
+    p1 = parent_times(torch, parent) if parent else None
+    mine = shared_times(torch)
+    p2 = parent_times(torch, parent) if parent else None
+    for name, ms in mine.items():
+        owner = results["merge" if name.startswith("row_sort_wide") else "K3"]
+        owner.setdefault("shared_ms", {})[name] = ms
+        line = f"[kernels] {name}: device ms per call {ms:.5f}"
+        if parent:
+            owner.setdefault("parent_shared_ms", {})[name] = (p1[name] + p2[name]) / 2
+            line += f"; parent ({parent.name}) {p1[name]:.5f} / {p2[name]:.5f}"
+        print(line)
 
 
 def _csv_rows(path):
@@ -720,8 +865,9 @@ def phase_scale_multik(torch, results, ctx):
     record(results, "K4-int64", launches=launches["K4-int64"])
 
 
-def phase_spill(torch):
-    """Per-k table spill on the card: the batch regroups merged, equal to a forced merged run."""
+def phase_spill(torch, results):
+    """Per-k table spill on the card: the batch regroups merged, equal to a
+    forced merged run; the regroup's sort_event_parts runs the merge kernel."""
     import dataclasses
 
     import numpy as np
@@ -748,11 +894,35 @@ def phase_spill(torch):
     require(int(stats["candidate_spilled_per_k"]) > 0, "the per-k tables did not spill")
     require(torch.equal(tid, m_tid) and torch.equal(score, m_score), "regrouped tables differ from the merged run")
     require(int(stats["candidate_spilled"]) == int(m_stats["candidate_spilled"]) > 0, "candidate_spilled differs")
-    a, b = quantify(index, packed, config), quantify(index, packed, merged)
+    reset_launches()
+    a = quantify(index, packed, config)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    b = quantify(index, packed, merged)
     require(np.array_equal(a.has_entry, b.has_entry) and np.allclose(a.pi, b.pi, rtol=1e-9, atol=0),
             "spill quant differs from the forced merged quant")
+    require(launches["merge"] > 0, f"the merged regroup did not merge through the merge kernel: {launches}")
     print(f"[spill] per-k spill {int(stats['candidate_spilled_per_k'])} -> merged regroup; tables == forced "
-          f"merged run; candidate_spilled {int(stats['candidate_spilled'])}")
+          f"merged run; candidate_spilled {int(stats['candidate_spilled'])}; quant launches {json.dumps(launches)}")
+    record(results, "merge", launches=launches["merge"])
+
+
+def _dedup_widths(c, n, ks, fraction, caps):
+    """The row widths that the long route's dedup sorts see on one batch."""
+    from sketch_rna_tpu_torch.sketch import dispatch
+
+    widths, real = [], dispatch.row_sort_wide
+
+    def recording(x):
+        widths.append(x.shape[1])
+        return real(x)
+
+    dispatch.row_sort_wide = recording
+    try:
+        dispatch.sketch_reads(c, n, ks, fraction, caps)
+    finally:
+        dispatch.row_sort_wide = real
+    return widths
 
 
 def phase_long_reads(torch, results):
@@ -763,7 +933,7 @@ def phase_long_reads(torch, results):
     from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.index.build import build_index
     from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.sketch.fracminhash import hash_plane
+    from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept
     from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
     (n_tx, n_reads), read_len = LONG_READS, 2000
@@ -781,13 +951,17 @@ def phase_long_reads(torch, results):
     L = read_len  # round_up(2000, 8)
     c, n, caps, _ = _first_batch(torch, "long-reads", index, config, codes, lengths, L)
     f = config.sketch_fraction
-    k3 = in_turns(torch, lambda c, n: nthash_sketch(c, n, 31, f), lambda c, n: hash_plane(c, n, 31, f),
-                  rotation((c, n), c.numel() + 4 * n.numel()), "nthash_sketch_kernel")
-    print(f"[long-reads] first batch, device ms: K3 [{BATCH}, {L}] k=31: kernel {k3[0]:.5f}, plain {k3[1]:.5f}")
+    widths = _dedup_widths(c, n, (31,), f, caps)
+    require(0 < max(widths) <= 256, f"the 2,000 bp dedup sorted at widths {widths}, not at most 256 lanes")
+    k3 = in_turns(torch, lambda c, n: nthash_sketch(c, n, 31, f), lambda c, n: hash_kept(c, n, 31, f),
+                  rotation((c, n), c.numel() + 4 * n.numel()), None)
+    print(f"[long-reads] first batch: dedup sort widths {widths}; device ms per call: K3 [{BATCH}, {L}] k=31: "
+          f"kernel {k3[0]:.5f}, plain {k3[1]:.5f}")
     record(results, "K3", launches=launches["K3"])
     del c, n
 
-    # Reads past K4's 16384 windows: the dedup sorts through row_sort_wide.
+    # 20 kb reads (nk_pad 32768): their ~1,000 kept hashes a read sort on
+    # K4-int64 alone, never through row_sort_wide's merges.
     n_tx, n_reads, read_len = VERY_LONG
     seqs = synth_transcriptome(np.random.default_rng(SEED + 2), n_tx, read_len, read_len + 4000)
     index = to_device(build_index(_records(seqs, "V"), config, device=DEVICE), DEVICE)
@@ -796,9 +970,12 @@ def phase_long_reads(torch, results):
     require(int(lengths.min()) == read_len, "a very long read is shorter than the read length")
     _, _, launches, _ = _timed_quant(torch, "very-long-reads", index, PackedReads(codes, lengths, []), config,
                                         n_reads)
-    require(launches["K3"] > 0 and launches["K4-int64"] > 0 and launches["K1"] == 0,
+    require(launches["K3"] > 0 and launches["K4-int64"] > 0 and launches["K1"] == 0 and launches["merge"] == 0,
             f"20 kb reads did not sketch through K3 + K4-int64 alone: {launches}")
-    _first_batch(torch, "very-long-reads", index, config, codes, lengths, read_len)
+    c, n, caps, _ = _first_batch(torch, "very-long-reads", index, config, codes, lengths, read_len)
+    widths = _dedup_widths(c, n, (31,), config.sketch_fraction, caps)
+    require(max(widths) <= 1 << 14, f"the 20 kb dedup sorted at widths {widths}, past K4's widest row")
+    print(f"[very-long-reads] first batch: dedup sort widths {widths}")
 
 
 def _rel_diff(a, b) -> float:
@@ -1055,20 +1232,21 @@ def profile_stream(torch, ctx):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help=f"comma list of {', '.join(PHASES)}; or main-shapes alone: only the kernels' device "
-                             "times at the main-path shapes, as JSON (what --parent runs in the other checkout)")
+                        help=f"comma list of {', '.join(PHASES)}; or shared-shapes alone: only the device times of "
+                             "the functions both trees share, as JSON (what --parent runs in the other checkout)")
     parser.add_argument("--profile", action="store_true",
                         help="last, trace one steady streamed quant with torch.profiler")
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a checkout of another commit holding this script: the kernels phase times its "
-                             "kernels at the main-path shapes too, before and after this tree's (parent_ms)")
+                        help="a checkout of another commit holding this script: the kernels phase times the "
+                             "functions both trees share there too, before and after this tree's "
+                             "(parent_shared_ms)")
     args = parser.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    unknown = sorted(set(phases) - set(PHASES) - {"main-shapes"})
+    unknown = sorted(set(phases) - set(PHASES) - {"shared-shapes"})
     if unknown:
         parser.error(f"unknown phases {unknown}")
-    if "main-shapes" in phases and phases != ["main-shapes"]:
-        parser.error("main-shapes runs alone")
+    if "shared-shapes" in phases and phases != ["shared-shapes"]:
+        parser.error("shared-shapes runs alone")
 
     import torch
 
@@ -1082,11 +1260,11 @@ def main() -> int:
         Path(sketch_rna_tpu_torch.__file__).resolve().parent == ROOT / "sketch_rna_tpu_torch",
         "run chip_smoke.py from a checkout that holds sketch_rna_tpu_torch/",
     )
-    if phases == ["main-shapes"]:  # what --parent asks of another checkout
+    if phases == ["shared-shapes"]:  # what --parent asks of another checkout
         from sketch_rna_tpu_torch import kernels
 
         kernels.library()
-        print(json.dumps({"main_shape_ms": main_shape_times(torch)}))
+        print(json.dumps({"shared_ms": shared_times(torch)}))
         return 0
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -1100,7 +1278,7 @@ def main() -> int:
         "sample-multik": phase_sample_multik,
         "scale": lambda: phase_scale(torch, results),
         "scale-multik": lambda: phase_scale_multik(torch, results, ctx),
-        "spill": lambda: phase_spill(torch),
+        "spill": lambda: phase_spill(torch, results),
         "long-reads": lambda: phase_long_reads(torch, results),
         "stream": lambda: phase_stream(torch, ctx),
         "stream-c3": lambda: phase_stream_c3(torch, ctx),

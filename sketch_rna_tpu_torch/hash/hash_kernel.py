@@ -1,37 +1,37 @@
-"""Wrapper of the hash-plane kernel K3 (csrc/hash.cu).
+"""Wrapper of the compacting hash kernel K3 (csrc/hash.cu).
 
-`nthash_sketch` computes, for one k, every window's kept hash or the
-sentinel: the input of a sort-based dedup for reads too long for the
-fused kernels, and the index build's hash.  On a CUDA tensor it launches
-the hand-written kernel (or raises); on a CPU tensor it runs the plain
-version, sketch/fracminhash.hash_plane.
+`nthash_sketch` hashes every window of one k and returns, per row, only
+the kept ones: the hashes and window indices of the windows inside the
+read whose hash passes the FracMinHash threshold, in window order.  It
+feeds the sort-based dedup of reads too long for the fused kernels and
+the index build.  On a CUDA tensor it launches the hand-written kernel
+(two passes: count per tile, then write at the tiles' offsets) or
+raises; on a CPU tensor it runs the plain version,
+sketch/fracminhash.hash_kept.
 """
 
 from __future__ import annotations
 
-import functools
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from sketch_rna_tpu_torch import kernels
-from sketch_rna_tpu_torch.hash.nthash import window_tables_u32
 from sketch_rna_tpu_torch.hash.sketch_kernel import check_batch
-from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold, hash_plane
+from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold, hash_kept, kept_width
 
 
-@functools.lru_cache(maxsize=None)
-def device_tables(k: int, device: torch.device) -> torch.Tensor:
-    """[k, 4] rotated-seed table as int32 bits (the kernel reads uint32)."""
-    return torch.from_numpy(window_tables_u32(k).view(np.int32).copy()).to(device)
+def nthash_sketch(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: float, pow2: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hashes [B, m] int64 holding uint32, windows [B, m] int32,
+    counts [B] int32): row b's counts[b] kept windows — inside the read
+    (window < length - (k-1)) with hash <= threshold — in window order,
+    then the sentinel 0xFFFFFFFF and -1.  m is the batch's largest count,
+    or with pow2 max(2, its next power of two).
 
-
-def nthash_sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: float) -> torch.Tensor:
-    """[B, L-k+1] int64 holding uint32 values: the hash of every window
-    that lies inside its read (position < length - (k-1)) and passes the
-    threshold, 0xFFFFFFFF elsewhere.
-
-    codes: [B, L] uint8, lengths: [B] int32, on one device.
+    codes: [B, L] uint8, lengths: [B] int32, on one device.  Reads the
+    largest count to the host (one sync).
     """
     check_batch(codes, lengths)
     B, L = codes.shape
@@ -39,23 +39,33 @@ def nthash_sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: 
     if k < 1 or nk < 1:
         raise ValueError(f"need 1 <= k <= L (L={L}, k={k})")
     if codes.device.type == "cpu":
-        return hash_plane(codes, lengths, k, fraction)
-    out = torch.empty((B, nk), dtype=torch.int64, device=codes.device)
+        return hash_kept(codes, lengths, k, fraction, pow2)
+    device = codes.device
+    lib = kernels.library()
+    threshold = fracminhash_threshold(fraction)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    T = lib.nthash_kept_tiles(L, k)
+    tile_counts = torch.empty((T, B), dtype=torch.int32, device=device)
     if B:
-        err = kernels.library().nthash_sketch_launch(
-            codes.data_ptr(),
-            lengths.data_ptr(),
-            device_tables(k, codes.device).data_ptr(),
-            out.data_ptr(),
-            B,
-            L,
-            k,
-            fracminhash_threshold(fraction),
-            torch.cuda.current_stream(codes.device).cuda_stream,
+        err = lib.nthash_count_launch(
+            codes.data_ptr(), lengths.data_ptr(), tile_counts.data_ptr(), B, L, k, threshold, stream
         )
-        kernels.check(err, "nthash_sketch")
+        kernels.check(err, "nthash_count")
         nthash_sketch.launches += 1
-    return out
+    # Each row's tile offsets: a scan along the outer dim (torch's innermost
+    # scan is slow for many short rows), or a flat scan of one long row.
+    incl = torch.cumsum(tile_counts.view(-1) if B == 1 else tile_counts, dim=0, dtype=torch.int32).view(T, B)
+    counts = incl[-1]
+    m = kept_width(int(counts.max()) if B else 0, pow2)
+    hashes = torch.empty((B, m), dtype=torch.int64, device=device)
+    windows = torch.empty((B, m), dtype=torch.int32, device=device)
+    if B and m:
+        err = lib.nthash_kept_launch(
+            codes.data_ptr(), lengths.data_ptr(), incl.data_ptr(), hashes.data_ptr(), windows.data_ptr(),
+            B, L, k, threshold, m, stream,
+        )
+        kernels.check(err, "nthash_kept")
+    return hashes, windows, counts
 
 
-nthash_sketch.launches = 0  # kernel launches since the last reset
+nthash_sketch.launches = 0  # calls that launched the kernel (both passes) since the last reset

@@ -43,11 +43,18 @@ _SIGNATURES = {
     # codes, lengths, num_k, ks, caps, out_hashes, out_masks, out_overflows
     # (host arrays of num_k), B, L, threshold, stream
     "fused_sketch_multik_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_uint, _P],
-    # codes, lengths, tables, out, B, L, k, threshold, stream
-    "nthash_sketch_launch": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _P],
+    # L, k -> tiles per row of the two K3 passes
+    "nthash_kept_tiles": [_I, _I],
+    # codes, lengths, tile_counts, B, L, k, threshold, stream
+    "nthash_count_launch": [_P, _P, _P, _I, _I, _I, ctypes.c_uint, _P],
+    # codes, lengths, incl, out_hashes, out_windows, B, L, k, threshold, m, stream
+    "nthash_kept_launch": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _P],
     # x, out, B, W, stream
     "row_sort_launch": [_P, _P, _I, _I, _P],
     "row_sort_i64_launch": [_P, _P, _I, _I, _P],
+    # x, out, N, W (= 2w), stream
+    "merge_pairs_launch": [_P, _P, _I, _I, _P],
+    "merge_pairs_i64_launch": [_P, _P, _I, _I, _P],
 }
 
 

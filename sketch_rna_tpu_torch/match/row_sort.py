@@ -7,9 +7,12 @@ tensor it runs the plain version, `row_sort_plain`.  The int64 instance
 is the key+payload sort: a (key << 32) | payload row sorts exactly as
 (key, payload) when both halves fit in 32 bits.
 
-`row_sort_wide` sorts rows of any power-of-two width: one K4 launch sorts
-every 16384-lane chunk, and rounds of `bitonic_merge_pair` in plain torch
-merge neighbouring chunks.  It is a composition of K4, not a kernel.
+`merge_pairs` merges the two ascending halves of every row of a [N, 2w]
+tensor: on a CUDA tensor the hand-written merge-path kernel
+(csrc/merge.cu), on a CPU tensor its plain version, `bitonic_merge_pair`.
+`merge_sorted_runs` merges a row's sorted w-lane runs by rounds of it, and
+`row_sort_wide` sorts rows of any power-of-two width: one K4 launch over
+the 16384-lane chunks, then one merge launch per doubling.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ MIN_WIDTH = 2
 MAX_WIDTH = 1 << 14  # 64 KB of shared memory per int32 row, 128 KB per int64 row
 
 _LAUNCH = {torch.int32: "row_sort_launch", torch.int64: "row_sort_i64_launch"}
+_MERGE = {torch.int32: "merge_pairs_launch", torch.int64: "merge_pairs_i64_launch"}
 
 
 def row_sort_plain(x: torch.Tensor) -> torch.Tensor:
@@ -81,11 +85,51 @@ def bitonic_merge_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def merge_pairs(x: torch.Tensor) -> torch.Tensor:
+    """Merge the two ascending halves of every row of x ([N, 2w] int32 or
+    int64, 2w a power of two >= 2) into one ascending row."""
+    if x.dtype not in _MERGE:
+        raise TypeError(f"merge_pairs takes int32 or int64, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"merge_pairs takes [N, 2w], got {tuple(x.shape)}")
+    N, W = x.shape
+    if W < 2 or W & (W - 1):
+        raise ValueError(f"row width {W} is not a power of two >= 2")
+    if N * W >= 1 << 40 or N >= 1 << 31:
+        raise ValueError(f"[{N}, {W}] exceeds the kernel's index range")
+    if not x.is_contiguous():
+        raise ValueError("merge_pairs takes a contiguous tensor")
+    if x.device.type == "cpu":
+        return bitonic_merge_pair(x[:, : W // 2], x[:, W // 2 :])
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = torch.empty_like(x)
+    if N:
+        name = _MERGE[x.dtype]
+        err = getattr(kernels.library(), name)(
+            x.data_ptr(), out.data_ptr(), N, W, torch.cuda.current_stream(x.device).cuda_stream
+        )
+        kernels.check(err, name)
+        merge_pairs.launches += 1
+    return out
+
+
+def merge_sorted_runs(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Sort every row of x ([B, W], W / w a power of two) whose aligned
+    w-lane runs are each ascending: log2(W / w) rounds of merge_pairs."""
+    B, W = x.shape
+    y = x.contiguous()
+    while w < W:
+        y = merge_pairs(y.view(-1, 2 * w))
+        w *= 2
+    return y.view(B, W)
+
+
 def row_sort_wide(x: torch.Tensor) -> torch.Tensor:
     """Ascending sort of every row of x ([B, W] int32 or int64, W any
     power of two >= 2): `row_sort` up to MAX_WIDTH lanes; past that, one
     K4 launch over the [B * W / MAX_WIDTH, MAX_WIDTH] chunks, then
-    log2(W / MAX_WIDTH) rounds that merge neighbouring sorted runs."""
+    merge_sorted_runs."""
     if x.dim() != 2:
         raise ValueError(f"row_sort_wide takes [B, W], got {tuple(x.shape)}")
     B, W = x.shape
@@ -93,15 +137,10 @@ def row_sort_wide(x: torch.Tensor) -> torch.Tensor:
         return row_sort(x)
     if W & (W - 1):
         raise ValueError(f"row width {W} is not a power of two")
-    y = row_sort(x.contiguous().view(-1, MAX_WIDTH))
-    w = MAX_WIDTH
-    while w < W:
-        pairs = y.view(-1, 2, w)
-        y = bitonic_merge_pair(pairs[:, 0], pairs[:, 1])
-        w *= 2
-    return y.view(B, W)
+    return merge_sorted_runs(row_sort(x.contiguous().view(-1, MAX_WIDTH)).view(B, W), MAX_WIDTH)
 
 
-# Kernel launches since the last reset, per key type.
+# Kernel launches since the last reset, per kernel and key type.
 row_sort.launches = 0
 row_sort.launches_i64 = 0
+merge_pairs.launches = 0

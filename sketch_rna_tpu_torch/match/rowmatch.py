@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, bitonic_merge_pair, row_sort
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, merge_sorted_runs, row_sort
 
 I32_MAX = 2**31 - 1  # sentinel event key; sorts after every tid
 # Widest per-read event row of one k (the JAX engines' expansion retry
@@ -184,20 +184,19 @@ def sort_event_parts(parts: Sequence[torch.Tensor], sort: Sort = row_sort) -> to
     """Sort per-k [B, w_k] event-key parts into one ascending row.
 
     The parts pad with sentinels to a common power-of-two width and a
-    power-of-two count; one K4 launch sorts them all, and pairwise
-    bitonic merges in plain torch (as the JAX package merges outside any
-    kernel) combine them, so the merged row may exceed K4's widest.  The
-    row holds the parts' keys plus sentinels, fully sorted."""
+    power-of-two count and lie side by side in each row; one K4 launch
+    sorts every part, and rounds of the merge kernel (as the JAX package
+    merges outside any kernel) combine neighbouring parts, so the merged
+    row may exceed K4's widest.  The row holds the parts' keys plus
+    sentinels, fully sorted."""
     if len(parts) == 1:
         return sort(parts[0])
     B = parts[0].shape[0]
     w = pow2ceil(max(p.shape[1] for p in parts))
     padded = [torch.nn.functional.pad(p, (0, w - p.shape[1]), value=I32_MAX) for p in parts]
     padded += [torch.full_like(padded[0], I32_MAX)] * (pow2ceil(len(parts)) - len(parts))
-    level = list(sort(torch.cat(padded)).split(B))
-    while len(level) > 1:
-        level = [bitonic_merge_pair(level[i], level[i + 1]) for i in range(0, len(level), 2)]
-    return level[0]
+    runs = sort(torch.stack(padded, dim=1).view(-1, w))
+    return merge_sorted_runs(runs.view(B, len(padded) * w), w)
 
 
 def row_events_to_candidates(

@@ -3,10 +3,11 @@
   - a k whose windows fit the fused kernels (nk_pad <= 1024, reads up to
     ~1 kb): K1 when it is the batch's only such k, else one K2 launch for
     all of them;
-  - a longer k, of any length: the hash plane of K3, then dedup_select's
-    two row sorts over the int64 plane padded to nk_pad — K4 up to 16384
-    windows, row_sort_wide (K4 chunks + merges in torch) past that — a
-    slice of the batch's rows at a time.
+  - a longer k, of any length: K3 compacts each read's kept windows
+    (~5% of them), and dedup_select's two row sorts run over those alone,
+    padded to m_pad = max(2, pow2ceil(the slice's most kept hashes)): K4
+    up to 16384 kept hashes, row_sort_wide (K4 chunks + merge kernel)
+    past that — a slice of the batch's rows at a time.
 
 Every route returns exactly sketch_batch's (hashes, mask, n_overflow) for
 its k; the plain version of the whole stage is sketch_all_k.
@@ -21,12 +22,12 @@ import torch
 from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
 from sketch_rna_tpu_torch.hash.sketch_kernel import MAX_WINDOWS, fused_sketch, fused_sketch_multik, window_pad
 from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
-from sketch_rna_tpu_torch.sketch.fracminhash import SENTINEL, dedup_select
+from sketch_rna_tpu_torch.sketch.fracminhash import dedup_select
 
-# Bytes of one slice's int64 hash plane.  The dedup holds the plane, its
-# sorted copy and, past K4's widest row, the merge rounds' few copies, so
-# a slice takes a small multiple of this; at nk_pad 32768 (20 kb reads)
-# it is 1024 rows, where a whole 8192-read batch would be 2 GiB a copy.
+# Bytes of one slice's worst-case kept hashes (every window kept, as at
+# fraction 0.9999): the dedup holds them, their sorted copy and, past
+# K4's widest row, the merge rounds' copies, so a slice takes a small
+# multiple of this.  At nk_pad 32768 (20 kb reads) a slice is 1024 rows.
 PLANE_BYTES = 1 << 28
 
 Sketch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -34,13 +35,12 @@ Sketch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def _sketch_long(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: float, cap: int,
                  nk_pad: int) -> Sketch:
-    """K3 plane + sort-based dedup, PLANE_BYTES of plane at a time."""
+    """K3's kept hashes + sort-based dedup, a slice of rows at a time."""
     rows = max(1, PLANE_BYTES // (8 * nk_pad))
     parts = []
     for r0 in range(0, max(codes.shape[0], 1), rows):
-        plane = nthash_sketch(codes[r0 : r0 + rows], lengths[r0 : r0 + rows], k, fraction)
-        plane = torch.nn.functional.pad(plane, (0, nk_pad - plane.shape[1]), value=SENTINEL)
-        parts.append(dedup_select(plane, cap, sort=row_sort_wide))
+        kept, _, _ = nthash_sketch(codes[r0 : r0 + rows], lengths[r0 : r0 + rows], k, fraction, pow2=True)
+        parts.append(dedup_select(kept, cap, sort=row_sort_wide))
     if len(parts) == 1:
         return parts[0]
     hashes, masks, overflow = zip(*parts)

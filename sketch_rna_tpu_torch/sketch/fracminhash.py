@@ -1,6 +1,6 @@
 """FracMinHash sketching: threshold filter + set-dedup — the plain
 PyTorch versions of the sketch kernels: `sketch_batch` of K1,
-`sketch_all_k` of K2 (hash/sketch_kernel.py) and `hash_plane` of K3
+`sketch_all_k` of K2 (hash/sketch_kernel.py) and `hash_kept` of K3
 (hash/hash_kernel.py).
 
 Reference semantics (createSketch_FracMinhash_direct, src/sketch.cpp:24-39):
@@ -51,6 +51,36 @@ def hash_plane(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: flo
     pos_ok = pos[None, :] < (lengths.long()[:, None] - (k - 1))
     keep = pos_ok & (h <= fracminhash_threshold(fraction))
     return torch.where(keep, h, SENTINEL)
+
+
+def kept_width(max_count: int, pow2: bool) -> int:
+    """Lanes of a kept-window row: the batch's largest count, or with pow2
+    max(2, its next power of two) — a width K4 sorts."""
+    if not pow2:
+        return max_count
+    return max(2, 1 << (max_count - 1).bit_length())
+
+
+def hash_kept(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: float, pow2: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """hash_plane compacted per row to its kept windows: (hashes [B, m]
+    int64, windows [B, m] int32, counts [B] int32), the kept hashes and
+    their window indices in window order, then SENTINEL and -1; m as
+    kept_width gives it for the batch's largest count."""
+    plane = hash_plane(codes, lengths, k, fraction)
+    B, nk = plane.shape
+    keep = plane != SENTINEL
+    counts = keep.sum(dim=1, dtype=torch.int32)
+    m = kept_width(int(counts.max()) if B else 0, pow2)
+    # A stable sort of the drop flags puts each row's kept windows first, in order.
+    order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices[:, : min(m, nk)]
+    hashes = torch.full((B, m), SENTINEL, dtype=torch.int64, device=plane.device)
+    windows = torch.full((B, m), -1, dtype=torch.int32, device=plane.device)
+    valid = torch.arange(order.shape[1], device=plane.device)[None, :] < counts[:, None]
+    hashes[:, : order.shape[1]] = torch.where(valid, plane.gather(1, order), SENTINEL)
+    windows[:, : order.shape[1]] = torch.where(valid, order, -1).to(torch.int32)
+    return hashes, windows, counts
 
 
 def sketch_batch(

@@ -1,4 +1,5 @@
-"""Plain versions of kernels K2, K3 and K4-int64 against the JAX package.
+"""Plain versions of kernels K2, K3 and K4-int64 against the JAX package,
+and the long-read route's sort widths.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the
 Pallas kernels run in interpret mode.  Integer outputs must be bit-equal.
@@ -16,11 +17,11 @@ from sketch_rna_tpu.hash.pallas_hash import nthash_sketch_pallas, sketch_batch_p
 from sketch_rna_tpu.sketch.fracminhash import sketch_batch as jax_sketch_batch
 from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
-from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
-from sketch_rna_tpu_torch.match.row_sort import row_sort
+from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik, window_pad
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort, row_sort_wide
 from sketch_rna_tpu_torch.sketch import dispatch
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
-from sketch_rna_tpu_torch.sketch.fracminhash import sketch_batch
+from sketch_rna_tpu_torch.sketch.fracminhash import SENTINEL, hash_kept, kept_width, sketch_batch
 
 FRACTION = 0.05
 KS = (21, 31)
@@ -61,17 +62,34 @@ def test_k2_plain_equals_pallas_and_per_k(L, caps):
         assert (int(ov) > 0) == (cap < 8)  # the small caps really overflow
 
 
-@pytest.mark.parametrize("k,L,B", [(21, 104, 24), (31, 160, 24), (31, 2048, 8)])
-def test_k3_plain_equals_pallas(k, L, B):
+@pytest.mark.parametrize("fraction", [FRACTION, 0.9999])
+@pytest.mark.parametrize("k,L,B", [(k, L, 8 if L > 1000 else 24) for k in KS for L in (104, 160, 2048)])
+def test_k3_plain_equals_pallas(k, L, B, fraction):
+    """K3 returns the Pallas plane's kept entries and their positions,
+    compacted per row in window order, then the sentinel and -1."""
     codes, lengths = _batch(k + L, L, B=B, k=k)
+    codes[5, : lengths[5]] = 2  # all-equal bases: every window the same hash
+    plane = np.asarray(
+        nthash_sketch_pallas(jnp.asarray(codes), jnp.asarray(lengths), k, fraction, interpret=True)
+    ).astype(np.int64)
     before = nthash_sketch.launches
-    got = nthash_sketch(torch.from_numpy(codes), torch.from_numpy(lengths), k, FRACTION)
-    assert nthash_sketch.launches == before
-    want = nthash_sketch_pallas(jnp.asarray(codes), jnp.asarray(lengths), k, FRACTION, interpret=True)
-    assert got.dtype == torch.int64 and got.shape == (B, L - k + 1)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
-    assert (got[:2] == 0xFFFFFFFF).all()  # lengths 0 and k - 1: no window
-    assert (got[2, 1:] == 0xFFFFFFFF).all()  # length k: one window
+    for pow2 in (False, True):
+        h, win, counts = nthash_sketch(torch.from_numpy(codes), torch.from_numpy(lengths), k, fraction, pow2)
+        assert nthash_sketch.launches == before  # a CPU tensor launches no kernel
+        assert h.dtype == torch.int64 and win.dtype == torch.int32 and counts.dtype == torch.int32
+        kept = [np.flatnonzero(row != SENTINEL) for row in plane]
+        most = max(p.size for p in kept)
+        assert h.shape == win.shape == (B, kept_width(most, pow2))
+        for b, pos in enumerate(kept):
+            n = int(counts[b])
+            assert n == pos.size
+            np.testing.assert_array_equal(win[b, :n].numpy(), pos)
+            np.testing.assert_array_equal(h[b, :n].numpy(), plane[b, pos])
+            assert (h[b, n:] == SENTINEL).all() and (win[b, n:] == -1).all()
+    assert int(counts[0]) == int(counts[1]) == 0  # lengths 0 and k - 1: no window
+    assert int(counts[2]) <= 1  # length k: one window
+    if fraction > 0.5:
+        assert int(counts[3]) > 0.99 * (L - k + 1)
 
 
 @pytest.mark.parametrize("W", [2, 64, 4096])
@@ -105,18 +123,65 @@ def test_sketch_reads_routes_equal_sketch_batch(L, ks):
         assert int(ov) == int(jov)
 
 
+def _recording_sort(monkeypatch):
+    """Replace the long route's dedup sort by one that records each width."""
+    widths = []
+
+    def sort(x):
+        widths.append(x.shape[1])
+        return row_sort_wide(x)
+
+    monkeypatch.setattr(dispatch, "row_sort_wide", sort)
+    return widths
+
+
+@pytest.mark.parametrize("L", [2000, 20000])
+def test_long_route_sorts_kept_width(L, monkeypatch):
+    """The long route sorts each slice's kept hashes at
+    max(2, pow2ceil(its most kept)), not at the reads' nk_pad: 256 lanes or
+    fewer for 2,000 bp reads at fraction 0.05, and no row_sort_wide merge
+    for 20 kb reads."""
+    codes, lengths = _batch(L, L, B=6)
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    cap = QuantConfig().sketch_capacity_for(31, L)
+    widths = _recording_sort(monkeypatch)
+    got = sketch_reads(c, n, (31,), FRACTION, (cap,))[0]
+    most = int(hash_kept(c, n, 31, FRACTION)[2].max())
+    assert widths == [kept_width(most, True)] * 2  # dedup_select's two sorts
+    assert widths[0] < window_pad(L, 31) and widths[0] <= (256 if L == 2000 else MAX_WIDTH)
+    for a, b in zip(got, sketch_batch(c, n, 31, FRACTION, cap)):
+        assert torch.equal(a, b)
+
+
+def test_kept_past_k4_width_sorts_wide(monkeypatch):
+    """20 kb reads at fraction 0.9999 keep nearly every window, so the
+    dedup still sorts through row_sort_wide's merges; equal to sketch_batch."""
+    codes, lengths = _batch(7, 20000, B=5)
+    c, n = torch.from_numpy(codes), torch.from_numpy(lengths)
+    widths = _recording_sort(monkeypatch)
+    got = sketch_reads(c, n, (31,), 0.9999, (64,))[0]
+    assert widths == [32768, 32768]
+    want = sketch_batch(c, n, 31, 0.9999, 64)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(want[2]) > 0  # cap 64 overflows
+
+
 def test_sketch_reads_refuses_past_k4_width():
-    """Past K4's widest row (16384 windows) sketch_reads no longer
-    refuses: the dedup sorts through row_sort_wide and equals
-    sketch_batch, also when the rows are sketched in several slices.
-    The fused kernel K1 still refuses reads past its 1024 windows."""
+    """Past K4's widest row (16384 kept hashes, here every window kept at
+    fraction 0.9999) sketch_reads no longer refuses: the dedup sorts
+    through row_sort_wide and equals sketch_batch, also when the rows are
+    sketched in several slices.  The fused kernel K1 still refuses reads
+    past its 1024 windows."""
     codes = torch.zeros((2, 16415), dtype=torch.uint8)
     codes[1, ::3] = 2
     lengths = torch.full((2,), 16415, dtype=torch.int32)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(dispatch, "PLANE_BYTES", 8 * 32768)  # one row per slice
-        got = sketch_reads(codes, lengths, (31,), FRACTION, (64,))[0]
-    for a, b in zip(got, sketch_batch(codes, lengths, 31, FRACTION, 64)):
+        widths = _recording_sort(mp)
+        got = sketch_reads(codes, lengths, (31,), 0.9999, (64,))[0]
+    assert widths == [32768] * 4  # two slices, two sorts each
+    for a, b in zip(got, sketch_batch(codes, lengths, 31, 0.9999, 64)):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="K3"):
         fused_sketch(codes, lengths, 31, FRACTION, 64)

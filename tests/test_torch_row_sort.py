@@ -68,3 +68,43 @@ def test_row_sort_wide_equals_torch_sort(W, dtype):
     got = row_sort_wide(t)
     assert got.shape == t.shape and got.dtype == t.dtype
     assert torch.equal(got, torch.sort(t, dim=1).values)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("w", [2, 64, 16384])
+def test_merge_pairs_plain_equals_torch_sort(w, dtype):
+    """The merge kernel's plain version (bitonic_merge_pair) merges each
+    row's two ascending halves: equal to torch.sort of the row, over long
+    runs of equal keys and the type's extremes."""
+    from sketch_rna_tpu_torch.match.row_sort import merge_pairs
+
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(w + info.bits)
+    x = rng.integers(info.min, info.max, size=(8, 2 * w), endpoint=True, dtype=dtype)
+    x[0] = rng.integers(0, 3, size=2 * w)  # long runs of equal keys
+    x[1, ::2], x[1, 1::2] = info.min, info.max  # extremes
+    x[2] = 7  # one key
+    x[3, :w], x[3, w:] = info.max, info.min  # the right run entirely first
+    x = np.concatenate([np.sort(x[:, :w], axis=1), np.sort(x[:, w:], axis=1)], axis=1)
+    t = torch.from_numpy(x)
+    before = merge_pairs.launches
+    got = merge_pairs(t)
+    assert merge_pairs.launches == before  # a CPU tensor launches no kernel
+    assert got.dtype == t.dtype and torch.equal(got, torch.sort(t, dim=1).values)
+
+
+@pytest.mark.parametrize(
+    "x,err",
+    [
+        (torch.zeros((4, 12), dtype=torch.int32), ValueError),  # not a power of two
+        (torch.zeros((4, 1), dtype=torch.int64), ValueError),  # no pair
+        (torch.zeros((4, 8), dtype=torch.int16), TypeError),
+        (torch.zeros(8, dtype=torch.int32), ValueError),
+        (torch.zeros((8, 4), dtype=torch.int32).t(), ValueError),  # not contiguous
+    ],
+)
+def test_merge_pairs_rejects_bad_input(x, err):
+    from sketch_rna_tpu_torch.match.row_sort import merge_pairs
+
+    with pytest.raises(err):
+        merge_pairs(x)
