@@ -30,8 +30,9 @@ without printing its result line:
                 kernel launch or per whole call, over 50 calls whose inputs
                 rotate through copies past the L2 cache, timed in turns
                 plain, kernel, kernel, plain; the host is left out;
-  sample        the port's CLI on examples/sample.{fa,fq}, k=31: the
-                float64 CSV is byte-identical to examples/sample.expected.csv,
+  sample        the port's CLI on examples/sample.{fa,fq}, k=31: the CSV of
+                a plain quant (default flags: float64 EM) and of --em-dtype
+                float64 is byte-identical to examples/sample.expected.csv,
                 the float32 CSV within 1e-4 relative;
   sample-multik the CLI with -k 21,31, float64, on the card and in-process
                 with --device cpu: same rows, values within 1e-9 relative;
@@ -54,9 +55,29 @@ without printing its result line:
                 streamed engine (default knobs; a 2^16-row class buffer that
                 compacts and drains; one full-width buffer) equals the fused
                 run within 1e-9 relative;
+  sharded       the multi-GPU route on the scale-multik index and reads at
+                float64 EM: mesh (1, 1) in this process, then rank processes
+                (this script's --rank-worker entry, one per rank, on the
+                card(s) present: with fewer cards than ranks they share
+                cuda:0 and the collectives travel over gloo through host
+                memory, which a printed line states) at meshes (1, 2),
+                (2, 1) and (2, 2).  Every rank's result equals the fused
+                run within 1e-9 relative, with equal CSV rows, iterations
+                and zero loss stats, and every rank returns rank 0's
+                numbers; per mesh: reads/s, per-rank peak device memory
+                and index bytes (about half at ip = 2), launches per batch
+                of K2, K4, K4-int64 and the merge kernel, and the merge's
+                device time at the gathered shapes beside its bound.  Then
+                the CLI as two rank processes with --coordinator on
+                examples/sample.fq, each parsing its byte range: rank 0's
+                CSV is byte-identical to examples/sample.expected.csv and
+                one process alone writes.  A rank that fails or hangs fails
+                the phase (joined with a timeout, stragglers killed);
   stream-c3     BASELINE config 3 at its published size: 10,000,000 x 100 bp
                 reads against the 20,000-transcript stand-in, k=(21, 31),
-                streamed from 2-bit chunks made chunk by chunk, float32 EM;
+                streamed from 2-bit chunks made chunk by chunk, float32 EM,
+                then once more at float64 EM (the default): em_assign
+                seconds at both;
   cli-stream    the CLI's quant on a 2,200,000-read FASTQ: past the fused
                 bound it must take the streamed route over the native scan
                 feed (the Python feed, said so, if the native parser cannot
@@ -114,8 +135,11 @@ L2_BYTES = 50 * 2**20
 # peaks leaves out.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-PHASES = ("kernels", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads", "stream",
+PHASES = ("kernels", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads", "stream", "sharded",
           "stream-c3", "cli-stream", "samples")
+# The sharded phase's rank processes: (world size, meshes run in that world).
+SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
+RANK_JOIN_S = 420  # a world of rank processes is killed after this long
 KERNELS = {
     "K1": ("fused_sketch", "sketch_rna_tpu_torch/csrc/sketch.cu", "sketch_rna_tpu/hash/pallas_hash.py:160"),
     "K2": ("fused_sketch_multik", "sketch_rna_tpu_torch/csrc/sketch.cu", "sketch_rna_tpu/hash/pallas_hash.py:266"),
@@ -353,7 +377,8 @@ def main_shape_cases(torch):
     (kernel callable, plain callable, kernel-name substring or None for
     the whole call, argument copies, (bytes, operations), shape).  K1 and
     K4 run on the single-k path, K2, K4 and K4-int64 on the multi-k one
-    (PERF.md §6), K3 on long reads, the merge in row_sort_wide's round."""
+    (PERF.md §6), K3 on long reads, the merge on every batch of the
+    sharded route ("merge-wide": its round inside row_sort_wide)."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
@@ -384,10 +409,13 @@ def main_shape_cases(torch):
         x = _keys(torch, gen, BATCH, 256, dtype)
         cases[name] = (row_sort, row_sort_plain, "row_sort_kernel", (x,),
                        sort_work(BATCH, 256, x.element_size()), f"[{BATCH}, 256] {str(dtype)[6:]}")
-    w = 1 << 14
-    x = _halves(torch, _keys(torch, gen, BATCH, 2 * w, torch.int64), w)
-    cases["merge"] = (merge_pairs, lambda x: bitonic_merge_pair(x[:, :w], x[:, w:]), "merge_kernel", (x,),
-                      merge_work(BATCH, 2 * w, 8), f"[{BATCH}, {2 * w}] int64 (row_sort_wide's round)")
+    # The merge: the sharded route's round over a c3 batch's two 128-lane
+    # parts (every batch, PERF.md §6), and row_sort_wide's round.
+    for name, w, dtype, what in (("merge", 128, torch.int32, "the sharded route's round on c3"),
+                                 ("merge-wide", 1 << 14, torch.int64, "row_sort_wide's round")):
+        x = _halves(torch, _keys(torch, gen, BATCH, 2 * w, dtype), w)
+        cases[name] = (merge_pairs, lambda x, w=w: bitonic_merge_pair(x[:, :w], x[:, w:]), "merge_kernel", (x,),
+                       merge_work(BATCH, 2 * w, x.element_size()), f"[{BATCH}, {2 * w}] {str(dtype)[6:]} ({what})")
     return {name: (fn, plain, kern, rotation(args, sum(a.numel() * a.element_size() for a in args)), work, shape)
             for name, (fn, plain, kern, args, work, shape) in cases.items()}
 
@@ -618,11 +646,15 @@ def phase_kernels(torch, results, parent=None):
         library_ms = None
         if name.startswith("K4"):
             library_ms = plain_ms
-        elif name == "merge":
+        elif name.startswith("merge"):
             library_ms = device_ms(torch, row_sort_plain, arg_sets, reps=reps)
-        record(results, name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
-               bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, library_ms=library_ms, shape=shape,
-               timed="per call" if kern is None else "per launch")
+        timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+                     bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, library_ms=library_ms, shape=shape,
+                     timed="per call" if kern is None else "per launch")
+        if name == "merge-wide":
+            record(results, "merge", wide_round=timed)
+        else:
+            record(results, name, **timed)
         print(f"[kernels] {name} {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
               + (f"torch.sort {library_ms:.5f} ms, " if library_ms is not None else "")
               + f"bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
@@ -658,17 +690,21 @@ def phase_sample():
 
     ex = ROOT / "examples"
     with tempfile.TemporaryDirectory() as tmp:
-        idx, out64, out32 = (os.path.join(tmp, n) for n in ("sample.npz", "out64.csv", "out32.csv"))
+        idx, out, out64, out32 = (os.path.join(tmp, n) for n in ("sample.npz", "out.csv", "out64.csv", "out32.csv"))
         require(cli(["-o", "index", "-k", "31", str(ex / "sample.fa"), idx]) == 0, "index CLI failed")
+        require(cli(["-o", "quant", idx, str(ex / "sample.fq"), out]) == 0, "quant with default flags failed")
         require(cli(["-o", "quant", "--em-dtype", "float64", idx, str(ex / "sample.fq"), out64]) == 0, "quant failed")
         require(cli(["-o", "quant", "--em-dtype", "float32", idx, str(ex / "sample.fq"), out32]) == 0, "quant failed")
         expected = (ex / "sample.expected.csv").read_bytes()
+        require(Path(out).read_bytes() == expected,
+                "the CSV of a quant with default flags is not byte-identical to sample.expected.csv")
         require(Path(out64).read_bytes() == expected, "float64 CSV is not byte-identical to sample.expected.csv")
         a, b = _csv_rows(out32), _csv_rows(ex / "sample.expected.csv")
         require(a.keys() == b.keys(), "float32 CSV has another row set")
         rel = max(abs(x - y) / max(abs(y), 1e-9) for n in a for x, y in zip(a[n], b[n]))
         require(rel < 1e-4, f"float32 CSV max relative difference {rel}")
-    print(f"[sample] float64 CSV byte-identical ({len(b)} rows); float32 max relative diff {rel:.3g}")
+    print(f"[sample] default-flags CSV and float64 CSV byte-identical ({len(b)} rows); float32 max relative diff "
+          f"{rel:.3g}")
 
 
 def phase_sample_multik():
@@ -999,7 +1035,7 @@ def phase_stream(torch, ctx):
     config = dataclasses.replace(c3["config"], em_dtype="float64")
     packed = PackedReads(c3["codes"], c3["lengths"], [])
     t0 = time.perf_counter()
-    fused = quantify(c3["index"], packed, config)
+    fused = ctx["c3_fused64"] = quantify(c3["index"], packed, config)
     print(f"[stream] fused float64 quant of {packed.num_reads} reads: {time.perf_counter() - t0:.3f} s, "
           f"{fused.em_iterations} EM iterations")
     variants = {
@@ -1025,6 +1061,357 @@ def phase_stream(torch, ctx):
             require(st["stream_drains"] > 0, "the 2^16-row class buffer never drained")
 
 
+def _merge_shapes(torch, step, codes, lengths, index, config, caps):
+    """The (rows, row width, key type) of each merge kernel launch of one
+    batch through `step`, and the batch's launches of every kernel.  The
+    batch's first row sort is sort_event_parts' one launch over the P
+    parts of every row, [B * P, w]; its merge rounds follow from that."""
+    from sketch_rna_tpu_torch.match.row_sort import row_sort
+
+    sorted_shapes = []
+
+    def recording(x):
+        sorted_shapes.append((x.shape[0], x.shape[1], str(x.dtype)[6:]))
+        return row_sort(x)
+
+    reset_launches()
+    step(codes, lengths, index, config, caps, sort=recording)
+    launches = read_launches()
+    rows, w, dtype_name = sorted_shapes[0]
+    shapes = []
+    while rows > codes.shape[0]:
+        rows, w = rows // 2, w * 2
+        shapes.append([rows, w, dtype_name])
+    return shapes, launches
+
+
+def rank_worker(rank: int, world: int, port: int, workdir: str, device_type: str) -> int:
+    """One rank process of the sharded phase: joins the process group,
+    runs every mesh of workdir/plan.json on the problem saved there, and
+    writes per mesh its result (.npz) and its measurements (.json)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.dist.init import init_distributed, pick_backend, rank_device, shutdown
+    from sketch_rna_tpu_torch.dist.mesh import make_mesh
+    from sketch_rna_tpu_torch.dist.quant_stream import match_batch_sharded
+    from sketch_rna_tpu_torch.index.artifact import load_index
+    from sketch_rna_tpu_torch.index.shard import device_index_bytes, shard_to_device
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.pipeline import quantify_sharded
+
+    require(device_type == "cpu" or torch.cuda.is_available(), f"rank {rank} found no CUDA device")
+    backend = pick_backend(device_type, world)
+    init_distributed(f"localhost:{port}", world, rank, device_type=device_type, backend=backend, timeout_s=300)
+    try:
+        device = rank_device(device_type)
+        on_card = device.type == "cuda"
+        with open(os.path.join(workdir, "plan.json")) as fh:
+            plan = json.load(fh)
+        knobs = dict(plan["config"], kmer_lengths=tuple(plan["config"]["kmer_lengths"]))
+        config = QuantConfig(**knobs)
+        artifact = load_index(plan["index"])
+        codes, lengths = np.load(plan["codes"]), np.load(plan["lengths"])
+        packed = PackedReads(codes, lengths, [])
+        n_reads = packed.num_reads
+        for dp, ip in plan["meshes"]:
+            mesh = make_mesh(dp, ip, device)
+            shard = shard_to_device(artifact, ip, mesh.i, device)
+            quantify_sharded(shard, packed, config, mesh)  # warm-up at full size
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = quantify_sharded(shard, packed, config, mesh)
+            if on_card:
+                torch.cuda.synchronize()
+            own_s = time.perf_counter() - t0
+            launches = read_launches()
+            dist.barrier()
+            wall_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            # One batch of this rank's reads again, to record its launches
+            # and the merge kernel's shapes (collective over the index group).
+            r0, r1 = (n_reads * mesh.d) // dp, (n_reads * (mesh.d + 1)) // dp
+            L = plan["l_eff"]
+            c = torch.from_numpy(np.ascontiguousarray(packed.codes[r0 : r0 + config.batch_size, :L])).to(device)
+            n = torch.from_numpy(lengths[r0 : r0 + config.batch_size]).to(device)
+            caps = tuple(config.sketch_capacity_for(k, L) for k in config.kmer_lengths)
+            merged = dataclasses.replace(config, match_per_k_tables=False)
+            step = functools.partial(match_batch_sharded, index_group=mesh.index_group)
+            shapes, batch_launches = _merge_shapes(torch, step, c, n, shard, merged, caps)
+            tag = f"{dp}x{ip}.rank{rank}"
+            np.savez(os.path.join(workdir, f"{tag}.npz"), pi=res.pi, weighted=res.weighted_counts,
+                     has_entry=res.has_entry)
+            with open(os.path.join(workdir, f"{tag}.json"), "w") as fh:
+                json.dump(dict(mesh=[dp, ip], rank=rank, d=mesh.d, i=mesh.i, backend=mesh.backend, device=str(device),
+                               own_s=own_s, wall_s=wall_s, peak_bytes=peak, index_bytes=device_index_bytes(shard),
+                               batches=-(-(r1 - r0) // config.batch_size), launches=launches,
+                               batch_launches=batch_launches, merge_shapes=shapes, iterations=res.em_iterations,
+                               num_reads=res.num_reads, num_mapped=res.num_mapped, stats=res.stats,
+                               timing=res.timing), fh)
+    finally:
+        shutdown()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(commands, what, timeout_s, log_dir, **popen_kw):
+    """Start one process per command and wait for all.  The first rank to
+    fail, or the time limit, ends the wait: the rest are killed and the
+    phase fails with every rank's output shown.  Returns the outputs."""
+    logs = [os.path.join(log_dir, f"rank{rank}.log") for rank in range(len(commands))]
+    files = [open(path, "w") for path in logs]
+    procs = [subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, **popen_kw)
+             for cmd, fh in zip(commands, files)]
+    deadline = time.monotonic() + timeout_s
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            bad = [rank for rank, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} of {what} exited with code {procs[bad[0]].returncode}"
+            elif time.monotonic() > deadline:
+                failed = f"{what} did not finish in {timeout_s} s"
+            else:
+                time.sleep(0.2)
+        bad = [rank for rank, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if failed is None and bad:
+            failed = f"rank {bad[0]} of {what} exited with code {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for fh in files:
+            fh.close()
+    outs = [Path(path).read_text() for path in logs]
+    if failed:
+        for rank, out in enumerate(outs):
+            print(f"---- output of rank {rank} of {what} ----\n{out[-6000:]}")
+        require(False, failed)
+    return outs
+
+
+def _check_against(name, got_pi, got_weighted, got_has, iterations, stats, ref):
+    import numpy as np
+
+    rel = max(_rel_diff(got_pi, ref.pi), _rel_diff(got_weighted, ref.weighted_counts))
+    require(np.array_equal(got_has, ref.has_entry), f"sharded ({name}) CSV rows differ from the fused run's")
+    require(iterations == ref.em_iterations, f"sharded ({name}) ran {iterations} EM iterations, fused "
+            f"{ref.em_iterations}")
+    require(rel <= 1e-9, f"sharded ({name}) differs from the fused run by {rel} relative")
+    for key in ("sketch_overflow", "expand_dropped", "candidate_spilled", "candidate_spilled_per_k",
+                "class_overflow", "wide_spilled"):
+        require(stats[key] == ref.stats.get(key, 0) == 0, f"sharded ({name}) loss stat {key}={stats[key]}")
+    return rel
+
+
+def phase_sharded(torch, results, ctx, smi):
+    """The multi-GPU route at the c3 width, held to the fused run."""
+    import dataclasses
+
+    import numpy as np
+
+    from sketch_rna_tpu_torch.dist.init import pick_backend
+    from sketch_rna_tpu_torch.dist.mesh import index_device_bytes, make_mesh
+    from sketch_rna_tpu_torch.dist.quant_stream import match_batch_sharded
+    from sketch_rna_tpu_torch.index.artifact import save_index
+    from sketch_rna_tpu_torch.index.shard import shard_to_device
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.match.row_sort import bitonic_merge_pair, merge_pairs
+    from sketch_rna_tpu_torch.pipeline import quantify, quantify_sharded
+
+    c3 = c3_problem(torch, ctx)
+    config = dataclasses.replace(c3["config"], em_dtype="float64")
+    packed = PackedReads(c3["codes"], c3["lengths"], [])
+    n_reads = packed.num_reads
+    on_card = DEVICE == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    worlds = [w for w, _ in SHARDED_WORLDS]
+    print(f"[sharded] device_count {n_cards}; backend of the rank processes: "
+          + ", ".join(f"{w} ranks -> {pick_backend(DEVICE, w)}" for w in worlds)
+          + ("" if n_cards >= max(worlds) else
+             f"; fewer cards than ranks: the ranks share cuda:0 and the collectives go over gloo through host "
+             f"memory, so reads/s here measures the route's overhead, not scaling"))
+    ref = ctx.get("c3_fused64") or quantify(c3["index"], packed, config)
+    whole_bytes = index_device_bytes(c3["artifact"])
+    report = {}
+
+    # Mesh (1, 1) in this process: the engine with no process group.
+    mesh = make_mesh(1, 1, device=torch.device(DEVICE))
+    quantify_sharded(c3["artifact"], packed, config, mesh)  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = quantify_sharded(c3["artifact"], packed, config, mesh)
+    if on_card:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    rel = _check_against("1x1", res.pi, res.weighted_counts, res.has_entry, res.em_iterations, res.stats, ref)
+    batches = -(-n_reads // BATCH)
+    print(f"[sharded] mesh (1, 1) in-process: {n_reads} reads in {secs:.3f} s, {n_reads / secs:.1f} reads/s; max "
+          f"relative difference to fused {rel:.3g}; peak device memory {peak} bytes; index bytes {whole_bytes}; "
+          f"launches {json.dumps(launches)} over {batches} batches; stages (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in res.timing.items()})}")
+    require(launches["K2"] > 0 and launches["K4"] > 0 and launches["merge"] >= batches,
+            f"the sharded route skipped a kernel or a batch's merge: {launches}")
+    record(results, "merge", launches=launches["merge"])
+    c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
+    n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
+    caps = tuple(config.sketch_capacity_for(k, 104) for k in config.kmer_lengths)
+    shapes, per_batch = _merge_shapes(torch, match_batch_sharded, c, n, shard_to_device(c3["artifact"], 1, 0, DEVICE),
+                                      config, caps)
+    print(f"[sharded] mesh (1, 1): one batch launches {json.dumps(per_batch)}; its merge launches (rows, width, type) "
+          f"{shapes}")
+    report["1x1"] = dict(reads_per_s=n_reads / secs, peak_bytes=[peak], index_bytes=[whole_bytes],
+                         launches_per_batch=per_batch, merge_shapes=shapes)
+    del c, n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        idx_path, codes_path, lengths_path = (os.path.join(tmp, n) for n in ("c3.npz", "codes.npy", "lengths.npy"))
+        save_index(idx_path, c3["artifact"])
+        np.save(codes_path, c3["codes"])
+        np.save(lengths_path, c3["lengths"])
+        knobs = dataclasses.asdict(config)
+        for world, meshes in SHARDED_WORLDS:
+            workdir = os.path.join(tmp, f"world{world}")
+            os.mkdir(workdir)
+            with open(os.path.join(workdir, "plan.json"), "w") as fh:
+                json.dump(dict(index=idx_path, codes=codes_path, lengths=lengths_path, config=knobs, l_eff=104,
+                               meshes=[list(m) for m in meshes]), fh)
+            port = _free_port()
+            t0 = time.perf_counter()
+            _run_ranks([[sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", str(rank), str(world),
+                         str(port), workdir, DEVICE] for rank in range(world)],
+                       f"the {world}-rank world", RANK_JOIN_S, workdir, cwd=ROOT)
+            print(f"[sharded] {world} rank processes ran meshes {meshes} in {time.perf_counter() - t0:.1f} s")
+            for dp, ip in meshes:
+                tag = f"{dp}x{ip}"
+                ranks = []
+                for rank in range(world):
+                    with open(os.path.join(workdir, f"{tag}.rank{rank}.json")) as fh:
+                        info = json.load(fh)
+                    with np.load(os.path.join(workdir, f"{tag}.rank{rank}.npz")) as z:
+                        info.update(pi=z["pi"], weighted=z["weighted"], has_entry=z["has_entry"])
+                    ranks.append(info)
+                r0 = ranks[0]
+                rels = []
+                for info in ranks:
+                    require(on_card == info["device"].startswith("cuda"), f"rank {info['rank']} computed on "
+                            f"{info['device']}")
+                    rels.append(_check_against(f"{tag} rank {info['rank']}", info["pi"], info["weighted"],
+                                               info["has_entry"], info["iterations"], info["stats"], ref))
+                    require(np.array_equal(info["pi"], r0["pi"]) and np.array_equal(info["weighted"], r0["weighted"]),
+                            f"rank {info['rank']} of mesh {tag} does not hold rank 0's result")
+                    require(info["num_reads"] == n_reads and info["num_mapped"] == ref.num_mapped,
+                            f"mesh {tag} rank {info['rank']} counted {info['num_reads']} reads, "
+                            f"{info['num_mapped']} mapped")
+                    per_batch = info["batch_launches"]
+                    require(per_batch["K2"] == 1 and per_batch["K4"] >= 1 and per_batch["K3"] == per_batch["K1"] == 0
+                            and per_batch["merge"] == len(info["merge_shapes"]) >= 1,
+                            f"mesh {tag} rank {info['rank']}: one batch launched {per_batch}")
+                    require(info["launches"]["merge"] == info["batches"] * per_batch["merge"]
+                            and info["launches"]["K2"] == info["batches"],
+                            f"mesh {tag} rank {info['rank']}: {info['launches']} over {info['batches']} batches")
+                wall = max(info["wall_s"] for info in ranks)
+                idx_bytes = [info["index_bytes"] for info in ranks]
+                require(max(idx_bytes) <= (0.6 if ip == 2 else 1.01) * whole_bytes,
+                        f"mesh {tag}: index bytes per rank {idx_bytes} against {whole_bytes} for one replica")
+                print(f"[sharded] mesh ({dp}, {ip}) over {r0['backend']}, ranks on {sorted({i['device'] for i in ranks})}: "
+                      f"{n_reads} reads in {wall:.3f} s, {n_reads / wall:.1f} reads/s; max relative difference to "
+                      f"fused {max(rels):.3g}; every rank holds rank 0's result")
+                print(f"[sharded] mesh ({dp}, {ip}) per rank: peak device memory {[i['peak_bytes'] for i in ranks]} "
+                      f"bytes; index bytes {idx_bytes} (one replica {whole_bytes}); batches "
+                      f"{[i['batches'] for i in ranks]}; launches of rank 0 {json.dumps(r0['launches'])}; per batch "
+                      f"{json.dumps(r0['batch_launches'])}; merge launches of one batch (rows, width, type) "
+                      f"{r0['merge_shapes']}; stages of rank 0 (s) "
+                      f"{json.dumps({k: round(v, 4) for k, v in r0['timing'].items()})}")
+                report[tag] = dict(reads_per_s=n_reads / wall, backend=r0["backend"],
+                                   peak_bytes=[i["peak_bytes"] for i in ranks], index_bytes=idx_bytes,
+                                   launches_per_batch=r0["batch_launches"], merge_shapes=r0["merge_shapes"])
+
+    # The merge kernel at the gathered shapes, alone on the card.
+    if on_card:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+        timed = {}
+        for tag, entry in report.items():
+            total_ms = total_bound = 0.0
+            for rows, width, dtype_name in entry.get("merge_shapes", []):
+                key = (rows, width, dtype_name)
+                if key not in timed:
+                    dtype = getattr(torch, dtype_name)
+                    x = _halves(torch, _keys(torch, gen, rows, width, dtype), width // 2)
+                    nbytes, ops = merge_work(rows, width, x.element_size())
+
+                    def plain(x, w=width // 2):
+                        return bitonic_merge_pair(x[:, :w], x[:, w:])
+
+                    require(torch.equal(merge_pairs(x), plain(x)),
+                            f"merge_pairs differs from bitonic_merge_pair at [{rows}, {width}] {dtype_name}")
+                    ms, plain_ms = in_turns(torch, merge_pairs, plain, rotation((x,), nbytes // 2), "merge_kernel")
+                    b_ms, by = bound(nbytes, ops)
+                    timed[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+                    print(f"[sharded] merge [{rows}, {width}] {dtype_name} (a gathered batch's round): kernel "
+                          f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({by}), "
+                          f"{100 * b_ms / ms:.1f}% of bound")
+                    del x
+                total_ms += timed[key]["ms"]
+                total_bound += timed[key]["bound_ms"]
+            if entry.get("merge_shapes"):
+                entry.update(merge_ms_per_batch=total_ms, merge_bound_ms_per_batch=total_bound)
+                print(f"[sharded] mesh {tag}: the merge kernel takes {total_ms * 1e3:.2f} us of device time per batch "
+                      f"in {len(entry['merge_shapes'])} launches (bound {total_bound * 1e3:.3f} us)")
+        entry_timed = {f"[{r}, {w}] {t}": v for (r, w, t), v in timed.items()}
+    else:
+        entry_timed = {}
+    record(results, "merge", sharded=dict(meshes=report, rounds=entry_timed))
+
+    # The CLI as two rank processes, each parsing its byte range of the sample.
+    ex = ROOT / "examples"
+    with tempfile.TemporaryDirectory() as tmp:
+        from sketch_rna_tpu_torch.cli import main as cli
+
+        idx, out = os.path.join(tmp, "sample.npz"), os.path.join(tmp, "out.csv")
+        extra = [] if on_card else ["--device", "cpu"]
+        require(cli(["-o", "index", *extra, str(ex / "sample.fa"), idx]) == 0, "index CLI failed")
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=str(ROOT), SKETCH_TPU_DIST_TIMEOUT="120")
+        outs = _run_ranks([[sys.executable, "-m", "sketch_rna_tpu_torch.cli", "-o", "quant", *extra, "--coordinator",
+                             f"localhost:{port}", "--num-processes", "2", "--process-id", str(rank), idx,
+                             str(ex / "sample.fq"), out] for rank in range(2)],
+                          "the two-rank CLI", 240, tmp, cwd=ROOT, env=env)
+        route = [ln for o in outs for ln in o.splitlines() if ln.startswith("quant route:")]
+        writers = sum("Output written" in o for o in outs)
+        require(writers == 1 and "Output written" in outs[0], f"{writers} processes wrote the CSV, not rank 0 alone")
+        require(len(route) == 1 and route[0].startswith("quant route: sharded (dp=2, ip=1, "),
+                f"the two-rank CLI took another route: {route}")
+        require(Path(out).read_bytes() == (ex / "sample.expected.csv").read_bytes(),
+                "the two-rank CLI's CSV is not byte-identical to sample.expected.csv")
+    print(f"[sharded] two-rank CLI with --coordinator, each rank its byte range of sample.fq: {route[0]!r}; rank 0's "
+          f"CSV byte-identical to sample.expected.csv, one writer")
+    print(f"[sharded] card (name, power limit): {smi}")
+
+
 def _c3_chunks(seqs, n_reads, chunk, seed):
     """2-bit chunks of 100 bp reads, made chunk by chunk from seed + c."""
     from sketch_rna_tpu_torch.io.packing import PackedReads
@@ -1037,6 +1424,8 @@ def _c3_chunks(seqs, n_reads, chunk, seed):
 
 def phase_stream_c3(torch, ctx):
     """BASELINE config 3 at 10M reads through the streamed engine."""
+    import dataclasses
+
     import numpy as np
 
     from sketch_rna_tpu_torch.stream import quantify_streamed
@@ -1073,6 +1462,20 @@ def phase_stream_c3(torch, ctx):
     require(res.num_mapped > 0.9 * C3_READS, f"only {res.num_mapped} reads mapped")
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
             f"the streamed multi-k path skipped a kernel: {launches}")
+
+    # The same feed once more at float64 EM, the CLI's default.
+    cfg64 = dataclasses.replace(config, em_dtype="float64")
+    t0 = time.perf_counter()
+    res64 = quantify_streamed(index, _c3_chunks(seqs, C3_READS, chunk, 9000), cfg64, num_reads_hint=C3_READS)
+    torch.cuda.synchronize()
+    secs64 = time.perf_counter() - t0
+    rel = _rel_diff(res.pi, res64.pi)
+    print(f"[stream-c3] float64 EM: {C3_READS} reads in {secs64:.3f} s, {C3_READS / secs64:.1f} reads/s; em_assign "
+          f"{res64.timing['em_assign']:.4f} s in {res64.em_iterations} iterations (float32: "
+          f"{res.timing['em_assign']:.4f} s in {res.em_iterations}); the float32 pi within {rel:.3g} relative of it")
+    require(np.isfinite(res64.pi).all() and res64.num_mapped == res.num_mapped
+            and all(res64.stats[key] == 0 for key in ("sketch_overflow", "expand_dropped", "class_overflow")),
+            f"the float64 streamed run lost work or mapped other reads: {res64.stats}")
 
 
 def _write_fastq(path, codes, lengths):
@@ -1240,7 +1643,12 @@ def main() -> int:
                         help="a checkout of another commit holding this script: the kernels phase times the "
                              "functions both trees share there too, before and after this tree's "
                              "(parent_shared_ms)")
+    parser.add_argument("--rank-worker", nargs=5, metavar=("RANK", "WORLD", "PORT", "WORKDIR", "DEVICE"),
+                        help="run as one rank process of the sharded phase (what that phase starts)")
     args = parser.parse_args()
+    if args.rank_worker:
+        rank, world, port, workdir, device_type = args.rank_worker
+        return rank_worker(int(rank), int(world), int(port), workdir, device_type)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES) - {"shared-shapes"})
     if unknown:
@@ -1281,6 +1689,7 @@ def main() -> int:
         "spill": lambda: phase_spill(torch, results),
         "long-reads": lambda: phase_long_reads(torch, results),
         "stream": lambda: phase_stream(torch, ctx),
+        "sharded": lambda: phase_sharded(torch, results, ctx, smi),
         "stream-c3": lambda: phase_stream_c3(torch, ctx),
         "cli-stream": lambda: phase_cli_stream(torch, ctx),
         "samples": phase_samples,

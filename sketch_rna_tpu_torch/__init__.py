@@ -1,9 +1,10 @@
 """sketch_rna_tpu_torch — the PyTorch/CUDA port of sketch_rna_tpu.
 
-`index` + `quant` on one NVIDIA Hopper GPU (or on the CPU, where every
-hand-written kernel runs as its plain PyTorch version): one k or
-several, reads of any length, any number of reads.  Module names follow
-the JAX package so each counterpart is easy to find:
+`index` + `quant` on one NVIDIA Hopper GPU, on several (one rank process
+per GPU), or on the CPU, where every hand-written kernel runs as its
+plain PyTorch version: one k or several, reads of any length, any number
+of reads.  Module names follow the JAX package so each counterpart is
+easy to find:
 
   io/        FASTA/FASTQ parsing, validation, 2-bit codes (numpy), and
              the ctypes binding of the native parser (native/fastio.cpp)
@@ -15,6 +16,9 @@ the JAX package so each counterpart is easy to find:
   em/        equivalence classes, EM + assignment, EM checkpoints
   pipeline   the fused engine, routing, multi-sample, CSV
   stream     the streamed engine past the fused bound
+  dist/      the process group, the (data, index) mesh, collectives and
+             the sharded engine a rank runs (index shards: index/shard.py)
+  utils/     synthetic data, phase timer, profiler hook
   csrc/      CUDA C++ sources of the kernels (built lazily by kernels.py)
 
 The package imports torch and numpy only — never jax, and nothing from

@@ -19,6 +19,14 @@ classes.  Sums use `index_add_`; on CUDA its atomics add in a varying
 order, so float64 results may move in the last ulp between runs.
 Convergence is tested on the host once per iteration.  `init_pi` and
 `start_iteration` resume from a checkpoint (em/checkpoint.py).
+
+With a `group` (a mesh's data group, dist/mesh.py) the tables are this
+rank's share of the reads: each iteration all-reduces the posterior sums
+over the group once (the JAX package's axis_name="data" psum), and the
+assignment its counts and entry marks.  A rank's static_base folds in
+before the all-reduce, so every rank's is totalled exactly once;
+num_reads is the global read count.  Every rank of the group reads the
+same all-reduced pi, so all stop on the same iteration.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from sketch_rna_tpu_torch.dist.collectives import all_reduce_sum
 from sketch_rna_tpu_torch.em.classes import Table
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -51,6 +60,7 @@ def run_em_tables(
     static_base: Optional[torch.Tensor] = None,
     init_pi: Optional[torch.Tensor] = None,
     start_iteration: int = 0,
+    group=None,
 ) -> Tuple[torch.Tensor, int, bool]:
     """Run the EM loop from iteration start_iteration (pi init_pi, or
     uniform) up to max_iterations.
@@ -86,6 +96,7 @@ def run_em_tables(
             if wgt is not None:
                 post = post * wgt
             ps.index_add_(0, tid.reshape(-1), post.reshape(-1))
+        ps = all_reduce_sum(ps, group)
         new_pi = (ps + term_div) + term_pc
         change = (new_pi - pi).abs().sum()
         pi = new_pi
@@ -102,6 +113,7 @@ def assign_reads_tables(
     dtype: str = "float32",
     static_base: Optional[torch.Tensor] = None,
     static_has: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Soft assignment with the final pi.
 
@@ -112,8 +124,8 @@ def assign_reads_tables(
     T = num_transcripts
     dt = _DTYPES[dtype]
     dev = pi.device
-    weighted = torch.zeros(T, dtype=dt, device=dev)
-    has = torch.zeros(T, dtype=torch.int64, device=dev)
+    weighted = torch.zeros(T, dtype=dt, device=dev) if static_base is None else static_base.to(dt, copy=True)
+    has = torch.zeros(T, dtype=torch.int64, device=dev) if static_has is None else static_has.to(torch.int64, copy=True)
     for table in tables:
         tid, sc, wgt = _unpack(table, dt)
         w = pi[tid] * sc
@@ -127,8 +139,4 @@ def assign_reads_tables(
         flat_tid = tid.reshape(-1)
         weighted.index_add_(0, flat_tid, prob.reshape(-1))
         has.index_add_(0, flat_tid, contributes.reshape(-1).long())
-    if static_base is not None:
-        weighted = weighted + static_base.to(dt)
-    if static_has is not None:
-        has = has + static_has.long()
-    return weighted, has > 0
+    return all_reduce_sum(weighted, group), all_reduce_sum(has, group) > 0

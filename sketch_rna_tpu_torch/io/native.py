@@ -291,14 +291,18 @@ class LazyScanFeed:
         return max(((self.scan.max_len + 7) // 8) * 8, self._min_len)
 
     def __iter__(self):
+        # A generator: its body runs at the first step, so _started flips
+        # only when chunks_from_scan2 is about to enter the try that
+        # closes the scan.  iter(feed) alone leaves the scan to close().
+        scan, pad_len = self.scan, self.pad_len
         self._started = True
-        return chunks_from_scan2(self.scan, self._chunk_reads, self.pad_len, row_multiple=self._row_multiple,
-                                 close=True)
+        yield from chunks_from_scan2(scan, self._chunk_reads, pad_len, row_multiple=self._row_multiple, close=True)
 
     def close(self) -> None:
-        """Close a scan that iteration never took over.  Called from the
-        caller's cleanup, so a late scan error is logged, not raised over
-        the exception already in flight."""
+        """Close a scan that iteration never took over (never started, or
+        started with iter() but never stepped).  Called from the caller's
+        cleanup, so a late scan error is logged, not raised over the
+        exception already in flight."""
         if self._started:
             return
         self._thread.join()

@@ -21,6 +21,8 @@ src/main.cpp:165-197 in the reference):
 Past FUSED_MAX_PADDED_READS, quantify streams (stream.py); both engines
 share match_rows and em_assign.  quantify_samples runs several samples
 against one index; config.em_checkpoint checkpoints the EM (_run_em).
+quantify_sharded runs over a (data, index) mesh of rank processes
+(dist/), on the streamed engine with the index hash-range sharded.
 
 Posting expansion sizes each batch's event rows to its largest read, so
 unlike the JAX engine there are no tier widths, calibration passes or
@@ -41,7 +43,7 @@ import torch
 from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.em.classes import build_class_tables
 from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
-from sketch_rna_tpu_torch.index.artifact import DeviceIndex
+from sketch_rna_tpu_torch.index.artifact import DeviceIndex, IndexArtifact
 from sketch_rna_tpu_torch.io.packing import PackedReads
 from sketch_rna_tpu_torch.match.probe import probe
 from sketch_rna_tpu_torch.match.row_sort import row_sort
@@ -53,6 +55,8 @@ from sketch_rna_tpu_torch.match.rowmatch import (
     row_expand_from_runs,
 )
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+from sketch_rna_tpu_torch.utils.profiling import maybe_trace
+from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 
 log = logging.getLogger(__name__)
 
@@ -156,9 +160,16 @@ def sketch_match_step(
     return res
 
 
-def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig):
+def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig,
+               step: Callable[..., MatchResult] = sketch_match_step):
     """Candidate tables of every read, grouped by padded length as the
     JAX engine groups them.
+
+    step: what matches one batch, with sketch_match_step's first five
+    parameters (the sharded engine's gathers events over the index
+    group).  The batches and their order depend on the reads alone, in
+    ascending order of padded length: ranks that hold the same reads run
+    the same sequence of steps.
 
     codes: [N, L] uint8 on the host or already on the index's device;
     each group's rows, cut to the group's width, move to the device once.
@@ -189,7 +200,7 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
         n_padded += _round_up(n_rows, B)
         for b0 in range(0, n_rows, B):
             c, n = group[b0 : b0 + B], group_lengths[b0 : b0 + B]
-            results.append(sketch_match_step(c, n, index, config, caps))
+            results.append(step(c, n, index, config, caps))
             batches.append((c, n, caps))
     if len(ks) > 1 and config.match_per_k_tables:
         # A per-k table that spilled makes its batch's intersection
@@ -199,7 +210,7 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
         merged = dataclasses.replace(config, match_per_k_tables=False)
         for i in np.flatnonzero(spilled):
             c, n, caps = batches[i]
-            redo = sketch_match_step(c, n, index, merged, caps)
+            redo = step(c, n, index, merged, caps)
             redo.stats["candidate_spilled_per_k"] = results[i].stats["candidate_spilled_per_k"]
             results[i] = redo
         if any(spilled):
@@ -225,7 +236,7 @@ def _empty_result(index: DeviceIndex) -> QuantResult:
     )
 
 
-def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, static_base=None):
+def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, static_base=None, group=None):
     """The EM loop, with config.em_checkpoint's periodic checkpoints.
 
     With a checkpoint path, the iteration budget runs in segments of
@@ -243,6 +254,7 @@ def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, s
         epsilon=config.em_epsilon,
         dtype=config.em_dtype,
         static_base=static_base,
+        group=group,
     )
     if not config.em_checkpoint:
         pi, iterations, _ = run_em_tables(tables, num_reads, max_iterations=config.em_max_iterations, **kw)
@@ -278,13 +290,15 @@ def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, s
 
 
 def em_assign(tables, static_base, static_has, index: DeviceIndex, config: QuantConfig, *, num_reads: int,
-              num_mapped: int, stats: Dict[str, int], timing: Dict[str, float]) -> QuantResult:
+              num_mapped: int, stats: Dict[str, int], timing: Dict[str, float], group=None) -> QuantResult:
     """EM (with checkpoints) + soft assignment over weighted tables, timed
-    into timing["em_assign"]; the QuantResult of either engine."""
+    into timing["em_assign"]; the QuantResult of every engine.  group: the
+    data group whose ranks each hold a share of the classes (em/em.py);
+    num_reads and num_mapped are then the global counts."""
     t0 = time.perf_counter()
     names = index.names
     T = len(names)
-    pi, iterations = _run_em(tables, num_reads, T, config, static_base=static_base)
+    pi, iterations = _run_em(tables, num_reads, T, config, static_base=static_base, group=group)
     pi = pi.to(tables[0][0].device, torch.float64 if config.em_dtype == "float64" else torch.float32)
     weighted, has_entry = assign_reads_tables(
         tables,
@@ -293,6 +307,7 @@ def em_assign(tables, static_base, static_has, index: DeviceIndex, config: Quant
         dtype=config.em_dtype,
         static_base=static_base,
         static_has=static_has,
+        group=group,
     )
     result = QuantResult(
         names=list(names),
@@ -326,7 +341,10 @@ def quantify(
     Runs the fused engine when the padded read count fits
     FUSED_MAX_PADDED_READS, and streams through the fixed class buffer of
     stream.quantify_streamed past it (O(buffer) device memory at any
-    read count), as the JAX package routes.
+    read count), as the JAX package routes.  A fused run reports
+    timing["quant_fused"] and timing["quant_fused_per_s"] (reads/s), its
+    clock read after the device has finished; SKETCH_TPU_PROFILE traces
+    either engine (utils/profiling.py).
     """
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
     R = packed.num_reads
@@ -335,7 +353,18 @@ def quantify(
     if streams(R, config):
         from sketch_rna_tpu_torch.stream import quantify_streamed
 
-        return quantify_streamed(index, packed, config)
+        with maybe_trace("quant_streamed"):
+            return quantify_streamed(index, packed, config)
+    timer = PhaseTimer()
+    with maybe_trace("quant_fused"), timer.phase("quant_fused", items=R, device=index.device):
+        result = _quantify_fused(index, packed, config)
+    result.timing.update(timer.report())
+    return result
+
+
+def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig) -> QuantResult:
+    """The fused engine: every read's candidate table on the device at once."""
+    R = packed.num_reads
     T = index.num_transcripts
     dev = index.device
     timing: Dict[str, float] = {}
@@ -369,19 +398,81 @@ def quantify(
                      stats=host_stats, timing=timing)
 
 
+def quantify_sharded(
+    index: Union[IndexArtifact, DeviceIndex],
+    packed: PackedReads,
+    config: Optional[QuantConfig] = None,
+    mesh=None,
+    local_slice: bool = False,
+    device: str = "cuda",
+) -> QuantResult:
+    """Quant over a (data, index) mesh of rank processes, one per GPU: the
+    reads split over the data axis, the index hash-range sharded over the
+    index axis, the EM all-reduced over the data axis each iteration
+    (dist/quant_stream.py).  Every rank of the process group calls this
+    collectively and gets the same QuantResult, equal to quantify()'s on
+    the same reads but for float summation order.
+
+    index: the artifact on the host (this rank's shard of it is uploaded
+    to the mesh's device), or a DeviceIndex that already is this rank's
+    shard (index/shard.shard_to_device), as a caller with several samples
+    passes.  mesh: dist.mesh.make_mesh's; None makes one over every rank
+    of the process group (one rank without one), split by mesh_factor
+    with the index's device bytes, on `device` ("cuda": the rank's card,
+    or "cpu").  packed: every
+    rank's whole read set, of which rank (d, i) takes part d of dp; with
+    local_slice, this rank's own part d already (dist/multihost.py).
+    Always streams (O(chunk + class buffer) device memory) and always
+    groups merged.
+    """
+    from sketch_rna_tpu_torch.dist.init import rank_device
+    from sketch_rna_tpu_torch.dist.mesh import index_device_bytes, make_mesh, mesh_factor, world
+    from sketch_rna_tpu_torch.dist.multihost import quantify_sharded_multihost
+    from sketch_rna_tpu_torch.dist.quant_stream import quantify_rank
+    from sketch_rna_tpu_torch.index.shard import shard_to_device
+
+    config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
+    if mesh is None:
+        if isinstance(index, DeviceIndex):
+            raise ValueError("an index shard belongs to a mesh: pass the mesh it was cut for")
+        mesh = make_mesh(*mesh_factor(world()[1], index_bytes=index_device_bytes(index)),
+                         device=rank_device(device))
+    shard = index if isinstance(index, DeviceIndex) else shard_to_device(index, mesh.ip, mesh.i, mesh.device)
+    with maybe_trace("quant_sharded"):
+        if local_slice:
+            return quantify_sharded_multihost(shard, packed, config, mesh)
+        R = packed.num_reads
+        if R == 0:  # every rank holds the same reads, so all agree
+            return _empty_result(shard)
+        r0, r1 = (R * mesh.d) // mesh.dp, (R * (mesh.d + 1)) // mesh.dp
+        mine = PackedReads(packed.codes[r0:r1], packed.lengths[r0:r1], [])
+        return quantify_rank(shard, mine, config, mesh, R)
+
+
 def quantify_samples(
-    index: DeviceIndex,
+    index: Union[IndexArtifact, DeviceIndex],
     samples: Dict[str, Union[PackedReads, Callable[[], PackedReads]]],
     config: Optional[QuantConfig] = None,
+    sharded: bool = False,
+    mesh=None,
+    local_slice: bool = False,
 ) -> Dict[str, QuantResult]:
     """Quantify several samples against one loaded index, in turn.
 
     A value is a PackedReads, or a callable that returns one: it defers
     the parse + pack to the sample's turn, so host memory holds one
-    sample's reads at a time.
+    sample's reads at a time.  sharded runs each sample through
+    quantify_sharded with mesh and local_slice (pass this rank's index
+    shard so that it uploads once); else index is a DeviceIndex.
     """
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
-    return {name: quantify(index, reads() if callable(reads) else reads, config) for name, reads in samples.items()}
+    if sharded:
+        def quant(reads):
+            return quantify_sharded(index, reads, config, mesh, local_slice)
+    else:
+        def quant(reads):
+            return quantify(index, reads, config)
+    return {name: quant(reads() if callable(reads) else reads) for name, reads in samples.items()}
 
 
 def format_cpp_double(v: float) -> str:

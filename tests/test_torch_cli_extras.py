@@ -102,6 +102,21 @@ def test_cli_fused_route_is_named(files, tmp_path, capsys):
     assert "quant route: fused, feed: python" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("flag,value", [("--expand-per-read", "256"), ("--em-mxu", "auto"), ("--em-segsum", "off")])
+def test_jax_only_flags_are_accepted_and_ignored(files, tmp_path, capsys, flag, value):
+    """A JAX command line runs in the port: the flags of machinery the
+    port leaves out are no-ops, each named in one line on stderr."""
+    _, _, idx, fqs, _, _ = files
+    plain, flagged = str(tmp_path / "plain.csv"), str(tmp_path / "flagged.csv")
+    assert port_cli(["-o", "quant", "--device", "cpu", idx, fqs[1], plain]) == 0
+    assert "accepted and ignored" not in capsys.readouterr().err
+    assert port_cli(["-o", "quant", "--device", "cpu", flag, value, idx, fqs[1], flagged]) == 0
+    notes = [ln for ln in capsys.readouterr().err.splitlines() if "accepted and ignored" in ln]
+    assert len(notes) == 1 and flag in notes[0]
+    assert open(plain, "rb").read() == open(flagged, "rb").read()
+    assert jax_cli(["-o", "quant", flag, value, idx, fqs[1], str(tmp_path / "jax.csv")]) == 0
+
+
 def test_multi_sample_tpm_equals_jax_cli(files, tmp_path):
     _, _, idx, fqs, _, _ = files
     reads = ",".join(fqs)

@@ -6,6 +6,7 @@ Run in a subprocess so the test session's own imports don't count.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -18,10 +19,38 @@ import sketch_rna_tpu_torch.cli
 import sketch_rna_tpu_torch.pipeline
 import sketch_rna_tpu_torch.index.build
 import sketch_rna_tpu_torch.utils.synth
+import importlib, pkgutil
+names = [m.name for m in pkgutil.walk_packages(sketch_rna_tpu_torch.__path__, "sketch_rna_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert {"sketch_rna_tpu_torch.dist.quant_stream", "sketch_rna_tpu_torch.dist.collectives",
+        "sketch_rna_tpu_torch.utils.profiling", "sketch_rna_tpu_torch.index.shard"} <= set(names), names
+sys.argv = ["chip_smoke.py"]
+import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu", "triton"))
 assert not bad, bad
 print("PORT-IMPORT-CLEAN")
 """
+
+
+def _sources():
+    """Every Python source of the port, and chip_smoke.py."""
+    out = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(_REPO, "sketch_rna_tpu_torch")):
+        out += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return out
+
+
+def test_port_sources_name_no_jax_import():
+    """No source line imports jax or the JAX package, lazily or not (the
+    probe below sees only what importing the modules pulls in)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sketch_rna_tpu)(\.|\s|$)", re.M)
+    sources = _sources()
+    assert len(sources) > 30 and any(p.endswith(os.path.join("dist", "mesh.py")) for p in sources)
+    for path in sources:
+        with open(path) as fh:
+            hits = pattern.findall(fh.read())
+        assert not hits, (path, hits)
 
 
 def test_port_imports_no_jax():
