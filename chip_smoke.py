@@ -30,17 +30,31 @@ without printing its result line:
                 kernel launch or per whole call, over 50 calls whose inputs
                 rotate through copies past the L2 cache, timed in turns
                 plain, kernel, kernel, plain; the host is left out;
+  probe-segsum  P (bucket probe) against its plain version and the
+                searchsorted probe on the first c3 batch's sketches
+                ([8192, 32] per k), [8191, 160] rows from an offset, an
+                empty k and an index whose keys reach 0xFFFFFFFF; S
+                (segmented sum) against its plain version on the c3 EM's
+                lanes, 7 lanes fewer, and one transcript over ~200 blocks,
+                at float64, float32 and int32, bit for bit and bit-stable
+                between calls; then both timed (P per launch, S per call
+                of its two launches, over 20 calls) beside their
+                yardstick calls: the searchsorted probe, index_add_;
   sample        the port's CLI on examples/sample.{fa,fq}, k=31: the CSV of
-                a plain quant (default flags: float64 EM) and of --em-dtype
-                float64 is byte-identical to examples/sample.expected.csv,
-                the float32 CSV within 1e-4 relative;
+                a plain quant (default flags: float64 EM), of --em-dtype
+                float64 and of --em-segsum on is byte-identical to
+                examples/sample.expected.csv, the float32 CSV within 1e-4
+                relative;
   sample-multik the CLI with -k 21,31, float64, on the card and in-process
                 with --device cpu: same rows, values within 1e-9 relative;
   scale         6,000 synthetic isoform-family transcripts + 1,000,000
                 reads of 100 bp, k=31, batch 8192, float32 EM;
   scale-multik  the c3_chr20_multik configuration: 20,000 transcripts
                 (synth_transcriptome, seed 22) + 2,097,152 reads of 100 bp,
-                k=(21, 31), batch 8192, float32 EM;
+                k=(21, 31), batch 8192, float32 EM; then float64 with the
+                default EM route and twice with --em-segsum on: the two
+                bit-identical, within 1e-9 of the default, S launched
+                once an iteration and twice in the assignment;
   spill         300 transcripts sharing an 80-base core, ks (15, 31),
                 C=8: per-k tables spill and the batch regroups merged
                 (sort_event_parts: K4 + the merge kernel), equal to a
@@ -92,14 +106,17 @@ under torch.profiler last: device busy / idle share and time by item.
 
 A scale phase builds its index on the card, runs one warm-up and one
 timed quant (reads/s, stage seconds), counts kernel launches over the
-timed quant (every count set to 0 just before it), checks read-count
-conservation and zero dropped work, and holds the first batch's
-candidate tables against the plain functions on the same tensors.
+timed quant (every count set to 0 just before it: P must launch once a
+k and batch on scale, scale-multik, long-reads and stream-c3, and never
+on the sharded route), checks read-count conservation and zero dropped
+work, and holds the first batch's candidate tables against the plain
+functions on the same tensors.
 
 Then one JSON line per kernel ({"kernels": [...]}: launches on the main
 path, device ms, plain ms, bound in ms and us with the bytes and
 operations behind it, share of bound, library_ms (torch.sort for K4 and
-the merge), the shared functions' ms and, with --parent, the parent's),
+the merge, the searchsorted probe for P, index_add_ for S), the shared
+functions' ms and, with --parent, the parent's),
 the nvidia-smi line of the card, and last {"ok": true, "device": {...}}.
 Imports no JAX.
 """
@@ -135,8 +152,8 @@ L2_BYTES = 50 * 2**20
 # peaks leaves out.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-PHASES = ("kernels", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads", "stream", "sharded",
-          "stream-c3", "cli-stream", "samples")
+PHASES = ("kernels", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads",
+          "stream", "sharded", "stream-c3", "cli-stream", "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
 RANK_JOIN_S = 420  # a world of rank processes is killed after this long
@@ -149,6 +166,10 @@ KERNELS = {
                  "sketch_rna_tpu/match/pallas_sort.py:49"),
     # No TPU kernel merges: the JAX package's bitonic merge of sorted parts runs in XLA.
     "merge": ("merge_pairs", "sketch_rna_tpu_torch/csrc/merge.cu", "sketch_rna_tpu/match/rowmatch.py:122"),
+    # Neither has a TPU kernel: the JAX package probes its bucket table and
+    # sums segments in XLA.
+    "P": ("bucket_lookup", "sketch_rna_tpu_torch/csrc/bucket_probe.cu", "sketch_rna_tpu/match/bucket_lookup.py:135"),
+    "S": ("segsum_apply", "sketch_rna_tpu_torch/csrc/segsum.cu", "sketch_rna_tpu/em/segsum.py:114"),
 }
 
 
@@ -283,15 +304,44 @@ def merge_work(N: int, W: int, itemsize: int):
     return 2 * N * W * itemsize, N * W * (itemsize // 4)
 
 
+def probe_work(mask, length, mb: int):
+    """(bytes, integer operations) of probing [B, S] lanes through a
+    bucket table of width mb: each lane's bool mask in and its two int64
+    outputs out; a masked-in lane also reads its int64 hash (counted in
+    whole 32-byte sectors, 4 lanes each, that hold a masked-in lane), the
+    key part of its row (4 * mb bytes) and, on a hit (length > 0), its
+    8-byte run, and compares mb keys (this run's lanes, counted on the
+    card)."""
+    flat = mask.reshape(-1)
+    n, on = flat.numel(), int(flat.sum())
+    padded = flat.new_zeros(n + (-n % 4))
+    padded[:n] = flat
+    sectors = int(padded.view(-1, 4).any(dim=1).sum())
+    hits = int(((length > 0) & mask).sum())
+    return 17 * n + 32 * sectors + on * 4 * mb + 8 * hits, on * mb
+
+
+def segsum_work(plan, itemsize: int):
+    """(bytes, integer operations) of one segmented sum: each value
+    (itemsize), perm entry (4) and is_start flag (1) read once; seg_end
+    (4) and seg_live (1) read and the sum written once a transcript; the
+    scan's 9 additions a lane."""
+    n_pad, T = plan.perm.numel(), plan.seg_end.numel()
+    return n_pad * (itemsize + 5) + T * (5 + itemsize), 9 * n_pad
+
+
 def counters():
     """Each kernel wrapper's launch count (name -> (object, attribute))."""
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
+    from sketch_rna_tpu_torch.em.segsum import segsum_apply
+    from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
     from sketch_rna_tpu_torch.match.row_sort import merge_pairs, row_sort
 
     return {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
             "K3": (nthash_sketch, "launches"), "K4": (row_sort, "launches"),
-            "K4-int64": (row_sort, "launches_i64"), "merge": (merge_pairs, "launches")}
+            "K4-int64": (row_sort, "launches_i64"), "merge": (merge_pairs, "launches"),
+            "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches")}
 
 
 def reset_launches() -> None:
@@ -681,6 +731,189 @@ def phase_kernels(torch, results, parent=None):
         print(line)
 
 
+def c3_em_table(torch, ctx):
+    """The c3 stand-in's EM lanes: the class table the fused engine runs
+    its EM over for the 2^21 reads (match_rows, then build_class_tables
+    as _quantify_fused folds it); built once."""
+    if "c3_em" not in ctx:
+        from sketch_rna_tpu_torch.em.classes import build_class_tables
+        from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
+        from sketch_rna_tpu_torch.pipeline import _fold_ok, match_rows
+
+        c3 = c3_problem(torch, ctx)
+        cfg, T = c3["config"], c3["index"].num_transcripts
+        tid, score, _, _ = match_rows(c3["index"], torch.from_numpy(c3["codes"]), c3["lengths"], cfg)
+        W = min(pow2ceil(max(int((score > 0).sum(dim=1).max()), 1)), cfg.candidate_capacity)
+        ctx["c3_em"] = build_class_tables(tid[:, :W], score[:, :W], num_transcripts=T, fold=_fold_ok(cfg, T))[0]
+    return ctx["c3_em"]
+
+
+def phase_probe_segsum(torch, results, ctx):
+    """P (bucket probe) and S (segmented sum) against their plain versions
+    on the card, bit for bit, then timed at their main-path shapes beside
+    the yardstick call: P against match/probe.py's searchsorted probe on
+    the same hashes and index, S against one index_add_ of the same
+    values."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.em.segsum import build_segsum_plan, plan_from_tables, segsum_apply, segsum_plain
+    from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup, bucket_lookup_plain, device_bucket_table
+    from sketch_rna_tpu_torch.match.probe import probe
+    from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+    from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold
+
+    c3 = c3_problem(torch, ctx)
+    index, cfg = c3["index"], c3["config"]
+    ks, f = cfg.kmer_lengths, cfg.sketch_fraction
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    print(f"[probe-segsum] P tables of the c3 index: " + ", ".join(
+        f"k={k}: [{ki.bucket.packed.shape[0]}, {ki.bucket.packed.shape[1]}] (mb {ki.bucket.mb}, shift "
+        f"{ki.bucket.shift}) {ki.bucket.nbytes} bytes" for k, ki in index.per_k.items()))
+
+    def u32(x):
+        return torch.from_numpy(np.asarray(x, np.uint32).astype(np.int64)).to(DEVICE)
+
+    # name -> (hashes, mask, table, keys, row_ptr): the first c3 batch's
+    # sketches per k ([8192, 32], the fused path's width at 100 bp); a
+    # 2,000 bp read batch's width ([8191, 160] rows from an offset, 60% of
+    # the lanes the index's keys); an empty k; an index whose keys reach
+    # 0xFFFFFFFF (fraction 0.9999 and the top key a fraction-1.0 index
+    # can hold), probed with its keys, random words and 0xFFFFFFFF.
+    c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
+    n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
+    caps = tuple(cfg.sketch_capacity_for(k, 104) for k in ks)
+    cases = {}
+    for (h, m, _), k in zip(sketch_reads(c, n, ks, f, caps), ks):
+        ki = index.per_k[k]
+        cases[f"k={k} [{BATCH}, {h.shape[1]}]"] = (h, m, ki.bucket, ki.keys, ki.row_ptr)
+    ki = index.per_k[31]
+    S = cfg.sketch_capacity_for(31, 2000)
+    pick = torch.randint(0, ki.keys.numel(), (BATCH, S), generator=gen, device=DEVICE)
+    miss = torch.randint(0, fracminhash_threshold(f) + 1, (BATCH, S), generator=gen, device=DEVICE)
+    h = torch.where(torch.rand((BATCH, S), generator=gen, device=DEVICE) < 0.6, ki.keys[pick], miss)
+    m = torch.rand((BATCH, S), generator=gen, device=DEVICE) < 98.5 / S
+    cases[f"k=31 [{BATCH - 1}, {S}] at an offset"] = (h[1:], m[1:], ki.bucket, ki.keys, ki.row_ptr)
+    empty = u32([])
+    cases["empty k"] = (h, m, device_bucket_table(np.zeros(0, np.uint32), empty, torch.zeros(1, dtype=torch.int64,
+                        device=DEVICE)), empty, torch.zeros(1, dtype=torch.int64, device=DEVICE))
+    rng = np.random.default_rng(SEED + 12)
+    top = np.unique(np.concatenate([rng.integers(0, fracminhash_threshold(0.9999), 1 << 20, dtype=np.uint64),
+                                    [0xFFFFFFFF]]).astype(np.uint32))
+    rp = np.concatenate([[0], np.cumsum(rng.integers(1, 6, top.size))]).astype(np.int64)
+    keys, row_ptr = u32(top), torch.from_numpy(rp).to(DEVICE)
+    q = torch.where(torch.rand((BATCH, 32), generator=gen, device=DEVICE) < 0.5,
+                    keys[torch.randint(0, keys.numel(), (BATCH, 32), generator=gen, device=DEVICE)],
+                    torch.randint(0, 1 << 32, (BATCH, 32), generator=gen, device=DEVICE))
+    q[:, 0] = 0xFFFFFFFF
+    cases["fraction 0.9999 + key 0xFFFFFFFF [8192, 32]"] = (
+        q, torch.rand((BATCH, 32), generator=gen, device=DEVICE) < 0.8, device_bucket_table(top, keys, row_ptr),
+        keys, row_ptr)
+    for name, (h, m, t, keys, row_ptr) in cases.items():
+        got = bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb)
+        want = bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)
+        runs = probe(h, m, keys, row_ptr)
+        torch.cuda.synchronize()
+        require(same_tensors(torch, got, want), f"P differs from bucket_lookup_plain at {name}")
+        require(same_tensors(torch, got, runs), f"P differs from the searchsorted probe at {name}")
+        record(results, "P", max_abs_err=max_err(got, want))
+        print(f"[probe-segsum] P {name} (mb {t.mb}): bit-equal to bucket_lookup_plain and to the searchsorted probe, "
+              f"{int(m.sum())} lanes masked in, {int((got[1] > 0).sum())} hits")
+
+    # S on the c3 EM's lanes, on a lane count that is no multiple of 512,
+    # and on one transcript spanning ~200 blocks; float64, float32, int32.
+    table = c3_em_table(torch, ctx)
+    T = index.num_transcripts
+    flat_tid = table[0].reshape(-1)
+    n = flat_tid.numel()
+    spread = torch.randint(0, T, (50_000,), generator=gen, device=DEVICE, dtype=torch.int32)
+    one_long = torch.cat([torch.full((100_000,), 17, dtype=torch.int32, device=DEVICE), spread])
+    one_long = one_long[torch.randperm(one_long.numel(), generator=gen, device=DEVICE)]
+    plans = {f"c3 EM lanes [{n}]": (plan_from_tables([table], T), flat_tid),
+             f"c3 EM lanes [{n - 7}]": (build_segsum_plan(flat_tid[: n - 7], T), flat_tid[: n - 7]),
+             f"one transcript over {100_000 // 512}+ blocks [{one_long.numel()}]": (build_segsum_plan(one_long, T),
+                                                                                  one_long)}
+    s_cases = {}
+    for name, (plan, tids) in plans.items():
+        require(int(plan.carry_on.sum()) > 0 or "c3" in name, f"no run crosses a block at {name}")
+        for dtype in (torch.float64, torch.float32, torch.int32):
+            if dtype == torch.int32:
+                v = torch.randint(0, 3, (tids.numel(),), generator=gen, device=DEVICE, dtype=torch.int32)
+            else:
+                v = torch.rand(tids.numel(), generator=gen, device=DEVICE, dtype=torch.float64).to(dtype)
+            got, again, want = segsum_apply(plan, v), segsum_apply(plan, v), segsum_plain(plan, v)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"S differs from segsum_plain at {name} {dtype}")
+            require(torch.equal(got, again), f"S is not bit-stable between two calls at {name} {dtype}")
+            ref = torch.zeros(T, dtype=torch.float64, device=DEVICE).index_add_(0, tids.long(), v.double())
+            rel = float(((got.double() - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+            require(rel <= (1e-12 if dtype == torch.float64 else 1e-4 if dtype == torch.float32 else 0),
+                    f"S at {name} {dtype} is {rel} relative from the float64 index_add_")
+            record(results, "S", max_abs_err=float((got.double() - want.double()).abs().max()))
+            s_cases[(name, dtype)] = (plan, tids, v)
+        print(f"[probe-segsum] S {name}: bit-equal to segsum_plain and between calls at float64, float32, int32; "
+              f"{int(plan.carry_on.sum())} block carries")
+
+    # Device time: P per launch, S per whole call (its two launches).
+    print(f"[probe-segsum] P and S device ms, torch.profiler over {REPS} (P) and 20 (S) calls, "
+          "plain / kernel / kernel / plain")
+    by_shape = {}
+    for name, (h, m, t, keys, row_ptr) in cases.items():
+        if name.startswith("empty"):
+            continue
+        hm = (h.contiguous(), m.contiguous())
+        arg_sets = rotation(hm, 9 * h.numel())
+
+        def kern(h, m, t=t):
+            return bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb)
+
+        def plain(h, m, t=t):
+            return bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)
+
+        ms, plain_ms = in_turns(torch, kern, plain, arg_sets, "bucket_probe_kernel")
+        lib_ms = device_ms(torch, lambda h, m, keys=keys, row_ptr=row_ptr: probe(h, m, keys, row_ptr), arg_sets)
+        nbytes, ops = probe_work(m, bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)[1], t.mb)
+        b_ms, by = bound(nbytes, ops)
+        timed = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+                     bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, shape=name, timed="per launch")
+        by_shape[name] = timed
+        if name == f"k=31 [{BATCH}, 32]":
+            record(results, "P", **timed)
+        print(f"[probe-segsum] P {name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, searchsorted probe "
+              f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes), {100 * b_ms / ms:.1f}% of "
+              f"bound")
+    record(results, "P", by_shape=by_shape)
+    by_shape = {}
+    for (name, dtype), (plan, tids, v) in s_cases.items():
+        if name != f"c3 EM lanes [{n}]":
+            continue
+        arg_sets = rotation((v,), v.numel() * v.element_size())
+        idx = tids.long()
+
+        def kern(v, plan=plan):
+            return segsum_apply(plan, v)
+
+        def plain(v, plan=plan):
+            return segsum_plain(plan, v)
+
+        # 20 calls a trace: the plain version's carry loop makes a trace
+        # of hundreds of operations a call.
+        ms, plain_ms = in_turns(torch, kern, plain, arg_sets, None, reps=20)
+        lib_ms = device_ms(torch, lambda v, idx=idx: torch.zeros(T, dtype=v.dtype, device=DEVICE).index_add_(0, idx, v),
+                           arg_sets, reps=20)
+        nbytes, ops = segsum_work(plan, v.element_size())
+        b_ms, by = bound(nbytes, ops)
+        key = f"{name} {str(dtype)[6:]}"
+        timed = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+                     bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, shape=key, timed="per call")
+        by_shape[key] = timed
+        if name.startswith("c3") and dtype == torch.float64:
+            record(results, "S", **timed)
+        print(f"[probe-segsum] S {key}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, index_add_ "
+              f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes), {100 * b_ms / ms:.1f}% of "
+              f"bound")
+    record(results, "S", by_shape=by_shape)
+
+
 def _csv_rows(path):
     return {r[0]: (float(r[1]), float(r[2])) for r in list(csv.reader(open(path)))[1:]}
 
@@ -695,16 +928,21 @@ def phase_sample():
         require(cli(["-o", "quant", idx, str(ex / "sample.fq"), out]) == 0, "quant with default flags failed")
         require(cli(["-o", "quant", "--em-dtype", "float64", idx, str(ex / "sample.fq"), out64]) == 0, "quant failed")
         require(cli(["-o", "quant", "--em-dtype", "float32", idx, str(ex / "sample.fq"), out32]) == 0, "quant failed")
+        seg = os.path.join(tmp, "segsum.csv")
+        require(cli(["-o", "quant", "--em-segsum", "on", idx, str(ex / "sample.fq"), seg]) == 0,
+                "quant with --em-segsum on failed")
         expected = (ex / "sample.expected.csv").read_bytes()
         require(Path(out).read_bytes() == expected,
                 "the CSV of a quant with default flags is not byte-identical to sample.expected.csv")
+        require(Path(seg).read_bytes() == expected,
+                "the CSV of a quant with --em-segsum on is not byte-identical to sample.expected.csv")
         require(Path(out64).read_bytes() == expected, "float64 CSV is not byte-identical to sample.expected.csv")
         a, b = _csv_rows(out32), _csv_rows(ex / "sample.expected.csv")
         require(a.keys() == b.keys(), "float32 CSV has another row set")
         rel = max(abs(x - y) / max(abs(y), 1e-9) for n in a for x, y in zip(a[n], b[n]))
         require(rel < 1e-4, f"float32 CSV max relative difference {rel}")
-    print(f"[sample] default-flags CSV and float64 CSV byte-identical ({len(b)} rows); float32 max relative diff "
-          f"{rel:.3g}")
+    print(f"[sample] default-flags, float64 and --em-segsum on CSVs byte-identical ({len(b)} rows); float32 max "
+          f"relative diff {rel:.3g}")
 
 
 def phase_sample_multik():
@@ -775,6 +1013,7 @@ def _first_batch(torch, tag, index, config, codes, lengths, L):
     equal tables.  Returns the int32 and int64 rows the kernels' K4 sorted."""
     import numpy as np
 
+    from sketch_rna_tpu_torch.match.bucket_lookup import probe_index_plain
     from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
     from sketch_rna_tpu_torch.pipeline import sketch_match_step
     from sketch_rna_tpu_torch.sketch.fracminhash import sketch_all_k
@@ -790,7 +1029,8 @@ def _first_batch(torch, tag, index, config, codes, lengths, L):
         return row_sort(x)
 
     got = sketch_match_step(c, n, index, config, caps, sort=recording_sort)
-    want = sketch_match_step(c, n, index, config, caps, sketch=sketch_all_k, sort=row_sort_plain)
+    want = sketch_match_step(c, n, index, config, caps, sketch=sketch_all_k, sort=row_sort_plain,
+                             lookup=probe_index_plain)
     same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask"))
     require(same, f"{tag} first batch: kernel candidate tables differ from the plain functions'")
     print(f"[{tag}] first batch [{B}, {L}] caps {caps}: kernel tables == plain tables "
@@ -820,9 +1060,11 @@ def phase_scale(torch, results):
           f"{kidx.postings.size} postings in {time.perf_counter() - t0:.3f} s on the card")
     index = to_device(artifact, DEVICE)
     codes, lengths = sample_reads(seqs, n_reads, read_len, 256, seed=SEED)
-    _, _, launches, _ = _timed_quant(torch, "scale", index, PackedReads(codes, lengths, []), config, n_reads)
+    packed = PackedReads(codes, lengths, [])
+    _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads)
     require(launches["K1"] > 0 and launches["K4"] > 0, f"the single-k path skipped a kernel: {launches}")
     require(launches["K2"] == launches["K3"] == 0, f"the single-k path ran a multi-k or long-read kernel: {launches}")
+    require(launches["P"] == launches["K1"], f"the probe did not launch P once a batch: {launches}")
 
     L = 104  # round_up(100, 8): the width the quant path cut these reads to
     c, n, (cap,), rows = _first_batch(torch, "scale", index, config, codes, lengths, L)
@@ -882,6 +1124,8 @@ def phase_scale_multik(torch, results, ctx):
                                                            PackedReads(codes, lengths, []), config, n_reads)
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
             f"the multi-k path skipped a kernel: {launches}")
+    require(launches["P"] == len(ks) * launches["K2"], f"the probe did not launch P once a k and batch: {launches}")
+    segsum_launches = phase_segsum_quant(torch, ctx)
 
     L = 104
     c, n, caps, rows = _first_batch(torch, "scale-multik", index, config, codes, lengths, L)
@@ -899,6 +1143,49 @@ def phase_scale_multik(torch, results, ctx):
     record(results, "K2", launches=launches["K2"])
     record(results, "K4", launches=launches["K4"])
     record(results, "K4-int64", launches=launches["K4-int64"])
+    record(results, "P", launches=launches["P"])
+    record(results, "S", launches=segsum_launches)
+
+
+def phase_segsum_quant(torch, ctx):
+    """The c3 stand-in at float64: the default route (index_add_), then
+    --em-segsum on twice.  The two segsum runs give bit-identical pi and
+    counts, within 1e-9 relative of the default; S launches once an EM
+    iteration and twice in the assignment.  Returns S's launches of one
+    run."""
+    import dataclasses
+
+    import numpy as np
+
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.pipeline import quantify
+
+    c3 = c3_problem(torch, ctx)
+    packed = PackedReads(c3["codes"], c3["lengths"], [])
+    cfg = dataclasses.replace(c3["config"], em_dtype="float64")
+    t0 = time.perf_counter()
+    ref = ctx["c3_fused64"] = quantify(c3["index"], packed, cfg)
+    torch.cuda.synchronize()
+    print(f"[scale-multik] float64 quant, default EM route: {time.perf_counter() - t0:.3f} s, em_assign "
+          f"{ref.timing['em_assign']:.4f} s")
+    seg = dataclasses.replace(cfg, em_segsum="on")
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        res = quantify(c3["index"], packed, seg)
+        torch.cuda.synchronize()
+        runs.append((res, read_launches()))
+    (a, la), (b, _) = runs
+    require(np.array_equal(a.pi, b.pi) and np.array_equal(a.weighted_counts, b.weighted_counts),
+            "two --em-segsum on float64 quants differ")
+    rel = max(_rel_diff(a.pi, ref.pi), _rel_diff(a.weighted_counts[ref.has_entry], ref.weighted_counts[ref.has_entry]))
+    require(np.array_equal(a.has_entry, ref.has_entry) and a.em_iterations == ref.em_iterations and rel <= 1e-9,
+            f"--em-segsum on differs from the default route by {rel} relative")
+    require(la["S"] == a.em_iterations + 2, f"S launched {la['S']} times in {a.em_iterations} EM iterations")
+    print(f"[scale-multik] --em-segsum on, float64, twice: pi and counts bit-identical between the runs, within "
+          f"{rel:.3g} relative of the default route; em_assign {a.timing['em_assign']:.4f} / "
+          f"{b.timing['em_assign']:.4f} s; S launches {la['S']} ({a.em_iterations} iterations + 2)")
+    return la["S"]
 
 
 def phase_spill(torch, results):
@@ -984,6 +1271,7 @@ def phase_long_reads(torch, results):
     _, _, launches, _ = _timed_quant(torch, "long-reads", index, PackedReads(codes, lengths, []), config, n_reads)
     require(launches["K3"] > 0 and launches["K4-int64"] > 0 and launches["K1"] == 0,
             f"long reads did not sketch through K3 + K4-int64 alone: {launches}")
+    require(launches["P"] == -(-n_reads // BATCH), f"the probe did not launch P once a batch: {launches}")
     L = read_len  # round_up(2000, 8)
     c, n, caps, _ = _first_batch(torch, "long-reads", index, config, codes, lengths, L)
     f = config.sketch_fraction
@@ -1034,10 +1322,12 @@ def phase_stream(torch, ctx):
     c3 = c3_problem(torch, ctx)
     config = dataclasses.replace(c3["config"], em_dtype="float64")
     packed = PackedReads(c3["codes"], c3["lengths"], [])
-    t0 = time.perf_counter()
-    fused = ctx["c3_fused64"] = quantify(c3["index"], packed, config)
-    print(f"[stream] fused float64 quant of {packed.num_reads} reads: {time.perf_counter() - t0:.3f} s, "
-          f"{fused.em_iterations} EM iterations")
+    if "c3_fused64" not in ctx:  # else scale-multik's float64 run, timed there
+        t0 = time.perf_counter()
+        ctx["c3_fused64"] = quantify(c3["index"], packed, config)
+        print(f"[stream] fused float64 quant of {packed.num_reads} reads: {time.perf_counter() - t0:.3f} s")
+    fused = ctx["c3_fused64"]
+    print(f"[stream] the fused float64 quant took {fused.em_iterations} EM iterations")
     variants = {
         "default knobs": config,
         "class buffer 2^16 rows": dataclasses.replace(config, stream_class_capacity=1 << 16),
@@ -1275,6 +1565,7 @@ def phase_sharded(torch, results, ctx, smi):
           f"{json.dumps({k: round(v, 4) for k, v in res.timing.items()})}")
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["merge"] >= batches,
             f"the sharded route skipped a kernel or a batch's merge: {launches}")
+    require(launches["P"] == 0, f"the sharded route probed through the bucket table: {launches}")
     record(results, "merge", launches=launches["merge"])
     c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
     n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
@@ -1328,7 +1619,8 @@ def phase_sharded(torch, results, ctx, smi):
                             f"{info['num_mapped']} mapped")
                     per_batch = info["batch_launches"]
                     require(per_batch["K2"] == 1 and per_batch["K4"] >= 1 and per_batch["K3"] == per_batch["K1"] == 0
-                            and per_batch["merge"] == len(info["merge_shapes"]) >= 1,
+                            and per_batch["merge"] == len(info["merge_shapes"]) >= 1 and per_batch["P"] == 0
+                            and info["launches"]["P"] == 0,
                             f"mesh {tag} rank {info['rank']}: one batch launched {per_batch}")
                     require(info["launches"]["merge"] == info["batches"] * per_batch["merge"]
                             and info["launches"]["K2"] == info["batches"],
@@ -1452,6 +1744,8 @@ def phase_stream_c3(torch, ctx):
           f"{st['stream_drains']} drains; stats {json.dumps(st)}; EM iterations {res.em_iterations}; "
           f"mapped reads {res.num_mapped}; launches {json.dumps(launches)}")
     print(f"[stream-c3] peak device memory {peak} bytes (fused 2^21-read run: {ctx.get('fused_peak_bytes')})")
+    if ctx.get("fused_peak_bytes"):
+        require(peak <= 1.5 * ctx["fused_peak_bytes"], "stream-c3's peak device memory exceeds 1.5x the fused run's")
     require(res.num_reads == C3_READS, f"{res.num_reads} reads quantified")
     require(np.isfinite(res.pi).all() and np.isfinite(res.weighted_counts).all(), "non-finite EM output")
     for key in ("sketch_overflow", "expand_dropped", "candidate_spilled", "class_overflow", "wide_spilled"):
@@ -1462,6 +1756,8 @@ def phase_stream_c3(torch, ctx):
     require(res.num_mapped > 0.9 * C3_READS, f"only {res.num_mapped} reads mapped")
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
             f"the streamed multi-k path skipped a kernel: {launches}")
+    require(launches["P"] == 2 * launches["K2"], f"the streamed probe did not launch P once a k and batch: {launches}")
+    print(f"[stream-c3] bucket tables {json.dumps(index.bucket_bytes())} bytes per k, inside the peak above")
 
     # The same feed once more at float64 EM, the CLI's default.
     cfg64 = dataclasses.replace(config, em_dtype="float64")
@@ -1535,7 +1831,7 @@ def phase_cli_stream(torch, ctx):
         route = [line for line in err.getvalue().splitlines() if line.startswith("quant route:")]
         print(f"[cli-stream] CLI quant in {secs:.3f} s ({CLI_READS / secs:.1f} reads/s, parse included): {route}")
         require(rc == 0, f"CLI quant failed: {err.getvalue()[-2000:]}")
-        want = f"quant route: streamed, feed: {'native-scan' if has_native else 'python'}"
+        want = f"quant route: streamed, feed: {'native-scan' if has_native else 'python'}, em: scatter"
         require(route == [want], f"the CLI took another route: {route}, expected {want!r}")
         got = _csv_rows(out)
     ref = quantify_streamed(c3["index"], PackedReads(codes, lengths, []), c3["config"])
@@ -1682,6 +1978,7 @@ def main() -> int:
     ctx = {}  # data that several phases share (the c3 index and reads)
     runs = {
         "kernels": lambda: phase_kernels(torch, results, args.parent.resolve() if args.parent else None),
+        "probe-segsum": lambda: phase_probe_segsum(torch, results, ctx),
         "sample": phase_sample,
         "sample-multik": phase_sample_multik,
         "scale": lambda: phase_scale(torch, results),

@@ -68,8 +68,6 @@ STREAM_MIN_BYTES_ENV = "SKETCH_TPU_STREAM_MIN_BYTES"
 # JAX-CLI flags that select TPU machinery the port leaves out (flag -> why).
 _IGNORED_FLAGS = {
     "--expand-per-read": "event rows are sized exactly per batch, there is no expansion budget",
-    "--em-mxu": "the one-hot MXU E-step is TPU-only",
-    "--em-segsum": "the scatter-free segmented sum is a TPU workaround",
 }
 
 
@@ -125,6 +123,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="multi-k: group every batch as one merged K-wide event row instead of "
         "intersecting per-k tables (quant falls back to it per batch on a per-k spill)",
     )
+    p.add_argument("--em-mxu", choices=["auto", "on", "off"], default=d.em_mxu,
+                   help="the JAX package's one-hot E-step, which the port does not have: 'on' takes the scatter "
+                   "route (said on stderr) and, as in the JAX package, turns --em-segsum off")
+    p.add_argument("--em-segsum", choices=["auto", "on", "off"], default=d.em_segsum,
+                   help="sum the EM's posteriors by a segmented sum over transcript-sorted lanes (kernel S), "
+                   "bit-identical run to run, instead of index_add_ (auto: index_add_)")
     p.add_argument("--no-native", action="store_true", help="disable the native (C++) FASTQ parser")
     p.add_argument("--tpm", action="store_true",
                    help="append a TPM column (length-normalized; the reference promises TPM but never "
@@ -182,6 +186,8 @@ def _config_from_args(args) -> QuantConfig:
         max_read_len=args.max_read_len,
         candidate_capacity=args.candidate_capacity,
         em_dtype=args.em_dtype,
+        em_mxu=args.em_mxu,
+        em_segsum=args.em_segsum,
         match_per_k_tables=not args.merged_k_grouping,
         stream_drain=not args.no_stream_drain,
         em_checkpoint=args.em_checkpoint,
@@ -251,8 +257,13 @@ def _load_reads_slice(reads_path: str, k: int, config: QuantConfig, mesh):
     return packed
 
 
-def _report_route(route: str, feed: str) -> None:
-    print(f"quant route: {route}, feed: {feed}", file=sys.stderr)
+def _report_route(route: str, feed: str, config: QuantConfig) -> None:
+    from sketch_rna_tpu_torch.em.em import em_route_name
+
+    if config.em_mxu == "on":
+        print("--em-mxu on: the port has no one-hot E-step; the EM takes the scatter route", file=sys.stderr)
+    print(f"quant route: {route}, feed: {feed}, em: {em_route_name(config.em_mxu, config.em_segsum)}",
+          file=sys.stderr)
 
 
 def _quant_one(artifact, device, reads_path: str, config: QuantConfig, use_native: bool):
@@ -290,10 +301,10 @@ def _quant_one(artifact, device, reads_path: str, config: QuantConfig, use_nativ
         packed, feed_name = _load_reads(reads_path, max_k, config, False)
     print("Loading read completed")
     if feed is None:
-        _report_route("streamed" if pipeline.streams(packed.num_reads, config) else "fused", feed_name)
+        _report_route("streamed" if pipeline.streams(packed.num_reads, config) else "fused", feed_name, config)
         return pipeline.quantify(index, packed, config)
 
-    _report_route("streamed", feed_name)
+    _report_route("streamed", feed_name, config)
     try:
         # A lazy feed's read count would join its scan here; the engine
         # reads it from the feed once the first chunk is due.
@@ -378,7 +389,7 @@ def run_quant_sharded(
         else:
             packed, feed = _load_reads(fq, max_k, config, use_native)
         if primary:
-            _report_route(f"sharded ({mesh.describe()})", feed)
+            _report_route(f"sharded ({mesh.describe()})", feed, config)
         return packed
 
     # Each sample is parsed and packed only at its turn.
@@ -420,7 +431,7 @@ def run_quant(
 
         def load(fq=fq):
             packed, feed = _load_reads(fq, max(idx.kmer_lengths), config, use_native)
-            _report_route("streamed" if streams(packed.num_reads, config) else "fused", feed)
+            _report_route("streamed" if streams(packed.num_reads, config) else "fused", feed, config)
             return packed
 
         samples[os.path.splitext(os.path.basename(fq))[0]] = load

@@ -49,6 +49,13 @@ class QuantConfig:
     # whose per-k table spills is regrouped merged); False = the merged
     # K-wide event grouping for every batch (truncates only the final set).
     match_per_k_tables: bool = True
+    # EM routes (em/em.py em_route), "auto" | "on" | "off" as in the JAX
+    # package.  em_segsum: the deterministic segmented sum over a plan of
+    # transcript-sorted lanes instead of index_add_ ("auto" = scatter).
+    # em_mxu: the JAX package's one-hot E-step, which the port does not
+    # have: "on" takes the scatter route and, as there, turns segsum off.
+    em_mxu: str = "auto"
+    em_segsum: str = "auto"
 
     # --- streaming engine (stream.py), past FUSED_MAX_PADDED_READS --------
     # Rows of the device class buffer: bounds the DISTINCT candidate

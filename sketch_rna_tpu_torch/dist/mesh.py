@@ -32,9 +32,11 @@ DEFAULT_INDEX_HBM_BUDGET = 20 << 30
 
 
 def index_device_bytes(index) -> int:
-    """Bytes of one full replica of an IndexArtifact as to_device lays it
-    out: per k, keys and row_ptr as int64 and postings as int32 (the port
-    has no bucket tables).  Shape-only: nothing is allocated."""
+    """Bytes of one full replica of an IndexArtifact as the sharded route
+    lays it out (index/shard.py): per k, keys and row_ptr as int64 and
+    postings as int32.  A shard carries no bucket table (its route
+    binary-searches the keys), so none is counted.  Shape-only: nothing
+    is allocated."""
     total = 0
     for k in index.kmer_lengths:
         ki = index.per_k[k]

@@ -18,7 +18,8 @@ it to the single-device path, and the CLI runs the streamed engine
 
 Not ported from the JAX step: the static expand_per_read width (the
 port sizes each row exactly from one host read, all-reduced MAX over the
-index group) and the MXU switch.
+index group).  The EM takes the route of config.em_segsum (em_route), each
+rank planning a segmented sum over its own table.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.dist.collectives import all_reduce_sum
 from sketch_rna_tpu_torch.dist.mesh import Mesh
 from sketch_rna_tpu_torch.dist.quant_stream import match_batch_sharded
-from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
+from sketch_rna_tpu_torch.em.em import assign_reads_tables, em_route, run_em_tables
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex
 
 
@@ -57,6 +58,7 @@ def quant_step_sharded(
     res = match_batch_sharded(codes, lengths, index, config, caps, index_group=mesh.index_group)
     table = [(res.tid, res.score, None)]
     T = index.num_transcripts
+    route = em_route(table, T, config)
     pi, iterations, _ = run_em_tables(
         table,
         num_reads,
@@ -67,9 +69,10 @@ def quant_step_sharded(
         epsilon=config.em_epsilon,
         dtype=config.em_dtype,
         group=mesh.data_group,
+        **route,
     )
     weighted, has_entry = assign_reads_tables(table, pi, num_transcripts=T, dtype=config.em_dtype,
-                                              group=mesh.data_group)
+                                              group=mesh.data_group, **route)
     local = torch.stack([torch.as_tensor(res.stats[key], device=mesh.device).long()
                          for key in ("expand_dropped", "sketch_overflow", "candidate_spilled")])
     local[:1] = all_reduce_sum(local[:1], mesh.index_group)

@@ -4,7 +4,9 @@ The counterpart of sketch_rna_tpu/dist/quant_stream.py, built on the
 port's streamed engine (stream.py):
 
   match   per batch of the rank's reads (match_batch_sharded): sketch
-          (K1 / K2; K3 past 1024 windows), probe the LOCAL index shard,
+          (K1 / K2; K3 past 1024 windows), probe the LOCAL index shard
+          (match/probe.py's binary search, as the JAX shard_map route
+          probes with lookup_postings: a shard carries no bucket table),
           expand, gather the event lanes across the index group, group
           merged into top-C candidates;
   classes each chunk's rows pre-dedup into weighted classes and append to
@@ -36,15 +38,17 @@ What keeps the ranks in step:
     own data group, with no collective between columns, so a column
     cannot wait on another.  Within a data group every rank reads the
     same all-reduced pi and stops on the same iteration.  On a card the
-    index_add_ atomics of two columns may differ in the last place, so
-    the result of column 0 is handed to its index-group peers at the end
-    (an all-reduce SUM with zeros from the others): every rank returns
-    the same QuantResult.
+    index_add_ atomics of two columns may differ in the last place (the
+    default EM route; --em-segsum on sums in a fixed order), so the
+    result of column 0 is handed to its index-group peers at the end (an
+    all-reduce SUM with zeros from the others): every rank returns the
+    same QuantResult.
 
 Not ported, because the port's exact event widths and draining class
 buffer make them unnecessary: tier calibration and shared_tier_widths,
-the tier key psum, the pretail / expansion-doubling / full-bound reruns,
-tier_partition and the MXU / segsum switches.
+the tier key psum, the pretail / expansion-doubling / full-bound reruns
+and tier_partition.  The EM honours config.em_segsum
+(pipeline.em_assign), each rank planning over its own classes.
 """
 
 from __future__ import annotations

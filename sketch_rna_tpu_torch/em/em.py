@@ -15,10 +15,22 @@ The loop runs over one or several tables (the streaming engine's narrow
 and wide class buffers); their posterior sums add into one [T] vector
 per iteration.  Rows may carry a multiplicity `weight` (equivalence
 classes, em/classes.py); `static_base` adds folded single-candidate
-classes.  Sums use `index_add_`; on CUDA its atomics add in a varying
-order, so float64 results may move in the last ulp between runs.
-Convergence is tested on the host once per iteration.  `init_pi` and
-`start_iteration` resume from a checkpoint (em/checkpoint.py).
+classes.  Convergence is tested on the host once per iteration.
+`init_pi` and `start_iteration` resume from a checkpoint
+(em/checkpoint.py).
+
+Two routes for the per-transcript sums (em_route):
+
+  scatter  (the default) `index_add_`; on CUDA its atomics add in a
+           varying order, so float64 results may move in the last ulp
+           between runs;
+  segsum   (use_segsum) the lanes sorted by transcript once (a plan,
+           em/segsum.py, shared by the loop and the assignment), each sum
+           a segmented sum in a fixed order: bit-identical run to run.
+
+The JAX package has a third, the one-hot E-step (em_mxu), which it takes
+by itself only on a TPU.  The port has none: em_mxu "on" takes the
+scatter route, which is faster on a GPU.
 
 With a `group` (a mesh's data group, dist/mesh.py) the tables are this
 rank's share of the reads: each iteration all-reduces the posterior sums
@@ -37,14 +49,38 @@ import torch
 
 from sketch_rna_tpu_torch.dist.collectives import all_reduce_sum
 from sketch_rna_tpu_torch.em.classes import Table
+from sketch_rna_tpu_torch.em.segsum import SegsumPlan, plan_from_tables, segsum_apply
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def em_route_name(em_mxu: str, em_segsum: str) -> str:
+    """"scatter" or "segsum": the route of config.em_mxu / em_segsum ("auto"
+    | "on" | "off").  As in the JAX package off a TPU, segsum only when
+    asked for and never beside the one-hot step; that step itself is the
+    scatter here."""
+    return "segsum" if em_segsum == "on" and em_mxu != "on" else "scatter"
+
+
+def em_route(tables: Sequence[Table], num_transcripts: int, config) -> dict:
+    """run_em_tables' and assign_reads_tables' route keywords for these
+    tables and a QuantConfig: use_segsum and, with it, the plan built once
+    for the loop, every checkpoint segment and the assignment."""
+    use_segsum = em_route_name(config.em_mxu, config.em_segsum) == "segsum"
+    plan = plan_from_tables(tables, num_transcripts) if use_segsum else None
+    return dict(use_segsum=use_segsum, segsum_plan=plan)
 
 
 def _unpack(table: Table, dt: torch.dtype):
     tid, score, weight = table
     wgt = None if weight is None else weight.to(dt)[:, None]
     return tid.long(), score.to(dt), wgt
+
+
+def _plan(tables, T: int, use_segsum: bool, plan: Optional[SegsumPlan]) -> Optional[SegsumPlan]:
+    if not use_segsum:
+        return None
+    return plan if plan is not None else plan_from_tables(tables, T)
 
 
 def run_em_tables(
@@ -61,9 +97,13 @@ def run_em_tables(
     init_pi: Optional[torch.Tensor] = None,
     start_iteration: int = 0,
     group=None,
+    use_segsum: bool = False,
+    segsum_plan: Optional[SegsumPlan] = None,
 ) -> Tuple[torch.Tensor, int, bool]:
     """Run the EM loop from iteration start_iteration (pi init_pi, or
-    uniform) up to max_iterations.
+    uniform) up to max_iterations.  use_segsum picks the segsum route
+    (module docstring); segsum_plan: a plan of these tables built
+    earlier (else one is built here).
 
     Returns (pi [T], iterations done, converged): converged tells an
     early stop from reaching max_iterations, so a run split into
@@ -74,6 +114,7 @@ def run_em_tables(
     prepped = [_unpack(table, dt) for table in tables]
     dev = prepped[0][0].device
     base = None if static_base is None else static_base.to(dt)
+    plan = _plan(tables, T, use_segsum, segsum_plan)
     if init_pi is None:
         pi = torch.full((T,), 1.0 / T, dtype=dt, device=dev)
     else:
@@ -89,13 +130,19 @@ def run_em_tables(
     converged = False
     while iterations < max_iterations and not converged:
         ps = torch.zeros(T, dtype=dt, device=dev) if base is None else base.clone()
+        flats = []
         for tid, sc, wgt in prepped:
             w = pi[tid] * sc
             denom = w.sum(dim=1, keepdim=True)
             post = w * torch.where(denom > eps, 1.0 / denom, 0.0)
             if wgt is not None:
                 post = post * wgt
-            ps.index_add_(0, tid.reshape(-1), post.reshape(-1))
+            if plan is not None:
+                flats.append(post.reshape(-1))
+            else:
+                ps.index_add_(0, tid.reshape(-1), post.reshape(-1))
+        if plan is not None:
+            ps = ps + segsum_apply(plan, torch.cat(flats))
         ps = all_reduce_sum(ps, group)
         new_pi = (ps + term_div) + term_pc
         change = (new_pi - pi).abs().sum()
@@ -114,8 +161,12 @@ def assign_reads_tables(
     static_base: Optional[torch.Tensor] = None,
     static_has: Optional[torch.Tensor] = None,
     group=None,
+    use_segsum: bool = False,
+    segsum_plan: Optional[SegsumPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Soft assignment with the final pi.
+    """Soft assignment with the final pi, by the route run_em_tables
+    takes for the same flags (the segsum route sums the weighted counts
+    and the entry counts through the plan: two segmented sums).
 
     Returns (weighted_counts [T], has_entry [T] bool); has_entry marks the
     transcripts that are a candidate of >= 1 read with total probability
@@ -124,8 +175,16 @@ def assign_reads_tables(
     T = num_transcripts
     dt = _DTYPES[dtype]
     dev = pi.device
-    weighted = torch.zeros(T, dtype=dt, device=dev) if static_base is None else static_base.to(dt, copy=True)
-    has = torch.zeros(T, dtype=torch.int64, device=dev) if static_has is None else static_has.to(torch.int64, copy=True)
+    plan = _plan(tables, T, use_segsum, segsum_plan)
+    # The scatter route adds into the folded base; segsum adds it after
+    # its sums, as the JAX package does.
+    weighted = torch.zeros(T, dtype=dt, device=dev)
+    has = torch.zeros(T, dtype=torch.int64, device=dev)
+    if plan is None and static_base is not None:
+        weighted = static_base.to(dt, copy=True)
+    if plan is None and static_has is not None:
+        has = static_has.to(torch.int64, copy=True)
+    prob_flats, contrib_flats = [], []
     for table in tables:
         tid, sc, wgt = _unpack(table, dt)
         w = pi[tid] * sc
@@ -137,6 +196,17 @@ def assign_reads_tables(
             prob = prob * wgt
             contributes = contributes & (wgt > 0)
         flat_tid = tid.reshape(-1)
-        weighted.index_add_(0, flat_tid, prob.reshape(-1))
-        has.index_add_(0, flat_tid, contributes.reshape(-1).long())
+        if plan is not None:
+            prob_flats.append(prob.reshape(-1))
+            contrib_flats.append(contributes.reshape(-1).to(torch.int32))
+        else:
+            weighted.index_add_(0, flat_tid, prob.reshape(-1))
+            has.index_add_(0, flat_tid, contributes.reshape(-1).long())
+    if plan is not None:
+        weighted = segsum_apply(plan, torch.cat(prob_flats))
+        has = segsum_apply(plan, torch.cat(contrib_flats)).long()
+        if static_base is not None:
+            weighted = weighted + static_base.to(dt)
+        if static_has is not None:
+            has = has + static_has.to(torch.int64)
     return all_reduce_sum(weighted, group), all_reduce_sum(has, group) > 0

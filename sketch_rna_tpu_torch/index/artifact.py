@@ -9,16 +9,23 @@ On disk (FORMAT_VERSION 1, identical to sketch_rna_tpu/index/artifact.py):
 
 `to_device` carries an artifact — written by either package — into the
 port's device tensors: keys and row_ptr as int64 (keys hold uint32
-values; torch's uint32 lacks sort/searchsorted coverage), postings int32.
+values; torch's uint32 lacks sort/searchsorted coverage), postings int32,
+and each k's packed bucket table (match/bucket_lookup.py), built on the
+device from the uploaded CSR arrays as the JAX package's _device_index
+builds it: the probe table of the fused and streamed engines.  The
+upload's seconds, tables included, are set-up (`upload_s`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from sketch_rna_tpu_torch.match.bucket_lookup import BucketTable, device_bucket_table
 
 FORMAT_VERSION = 1
 
@@ -54,6 +61,9 @@ class DeviceKIndex:
     keys: torch.Tensor  # [U] int64 holding uint32 values, ascending
     row_ptr: torch.Tensor  # [U+1] int64
     postings: torch.Tensor  # [P] int32
+    # The probe table; None on an index shard (index/shard.py), whose
+    # route binary-searches keys (match/probe.py).
+    bucket: Optional[BucketTable] = None
 
 
 @dataclasses.dataclass
@@ -66,23 +76,34 @@ class DeviceIndex:
     sketch_fraction: float
     per_k: Dict[int, DeviceKIndex]
     device: torch.device
+    upload_s: float = 0.0  # to_device's seconds, bucket tables included
 
     @property
     def num_transcripts(self) -> int:
         return len(self.names)
 
+    def bucket_bytes(self) -> Dict[int, int]:
+        """Device bytes of each k's bucket table (0 on a shard)."""
+        return {k: ki.bucket.nbytes if ki.bucket is not None else 0 for k, ki in self.per_k.items()}
+
 
 def to_device(idx: IndexArtifact, device) -> DeviceIndex:
-    """Upload an artifact's per-k CSR arrays to `device`."""
+    """Upload an artifact's per-k CSR arrays to `device` and build each
+    k's bucket table there."""
     device = torch.device(device)
-    per_k = {
-        k: DeviceKIndex(
-            keys=torch.from_numpy(np.asarray(ki.keys, np.uint32).astype(np.int64)).to(device),
-            row_ptr=torch.from_numpy(np.asarray(ki.row_ptr).astype(np.int64)).to(device),
+    t0 = time.perf_counter()
+    per_k = {}
+    for k, ki in idx.per_k.items():
+        keys = torch.from_numpy(np.asarray(ki.keys, np.uint32).astype(np.int64)).to(device)
+        row_ptr = torch.from_numpy(np.asarray(ki.row_ptr).astype(np.int64)).to(device)
+        per_k[k] = DeviceKIndex(
+            keys=keys,
+            row_ptr=row_ptr,
             postings=torch.from_numpy(np.asarray(ki.postings, np.int32)).to(device),
+            bucket=device_bucket_table(ki.keys, keys, row_ptr),
         )
-        for k, ki in idx.per_k.items()
-    }
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     return DeviceIndex(
         names=list(idx.names),
         lengths=np.asarray(idx.lengths),
@@ -90,6 +111,7 @@ def to_device(idx: IndexArtifact, device) -> DeviceIndex:
         sketch_fraction=idx.sketch_fraction,
         per_k=per_k,
         device=device,
+        upload_s=time.perf_counter() - t0,
     )
 
 

@@ -55,6 +55,13 @@ _SIGNATURES = {
     # x, out, N, W (= 2w), stream
     "merge_pairs_launch": [_P, _P, _I, _I, _P],
     "merge_pairs_i64_launch": [_P, _P, _I, _I, _P],
+    # hashes, mask, packed, out_start, out_length, n, nb, mb, shift, stream
+    "bucket_probe_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # values, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on,
+    # scratch, ps, nblk, T, stream
+    "segsum_f64_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "segsum_f32_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "segsum_i32_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

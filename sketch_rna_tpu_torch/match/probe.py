@@ -1,11 +1,14 @@
-"""Index probe: sketch hashes -> posting runs (start, length).
+"""Index probe by binary search: sketch hashes -> posting runs (start,
+length), through torch.searchsorted over a k's sorted keys.
 
-The JAX package probes a bucketed direct-address table because gathers
-are slow on a TPU (match/bucket_lookup.py).  That premise is untested on
-Hopper, so the port binary-searches the sorted keys with
-torch.searchsorted; the (start, length) it returns are identical: the
-run of `postings` holding the transcripts of that hash, and (0, 0) for a
-masked lane or a hash the index does not hold.
+The sharded route probes its hash-range shard with it, as the JAX
+shard_map route probes with lookup_postings: a shard carries no bucket
+table.  The fused and streamed engines probe each k's bucket table
+instead (match/bucket_lookup.py, kernel P), as the JAX package's engines
+do; the two give identical runs: the run of `postings` holding the
+transcripts of that hash, and (0, 0) for a masked lane or a hash the
+index does not hold.  Which is faster on the H100 is in PERF.md's
+kernel table (P's library_ms is this function's time).
 """
 
 from __future__ import annotations

@@ -9,13 +9,14 @@ src/main.cpp:165-197 in the reference):
     capacities agree with the JAX run;
   - each batch of `batch_size` reads is sketched for every k (kernels
     K1/K2, or K3 + K4 for reads past 1024 windows; sketch/dispatch.py),
-    probed, expanded into one event row per read and k, and grouped into
+    probed in each k's bucket table (kernel P, match/bucket_lookup.py),
+    expanded into one event row per read and k, and grouped into
     top-C candidates (kernel K4) — match/rowmatch.py.  Several ks group
     per k and intersect; a batch where a per-k table spilled is grouped
     again in merged mode, which truncates only the final set;
   - the [N, C] tables narrow to the widest candidate set, collapse into
     equivalence classes (when N >= 1024, as in the JAX engine), and run
-    the EM + soft assignment;
+    the EM + soft assignment (route: config.em_segsum, em/em.py em_route);
   - write_csv emits rows in transcript-index order (PARITY.md dev. 2).
 
 Past FUSED_MAX_PADDED_READS, quantify streams (stream.py); both engines
@@ -42,10 +43,10 @@ import torch
 
 from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.em.classes import build_class_tables
-from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
+from sketch_rna_tpu_torch.em.em import assign_reads_tables, em_route, run_em_tables
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex, IndexArtifact
 from sketch_rna_tpu_torch.io.packing import PackedReads
-from sketch_rna_tpu_torch.match.probe import probe
+from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
 from sketch_rna_tpu_torch.match.row_sort import row_sort
 from sketch_rna_tpu_torch.match.rowmatch import (
     MatchResult,
@@ -129,18 +130,22 @@ def sketch_match_step(
     *,
     sketch: Callable = sketch_reads,
     sort: Callable[[torch.Tensor], torch.Tensor] = row_sort,
+    lookup: Callable = probe_index,
 ) -> MatchResult:
-    """One batch: sketch every k of the index, probe, expand, group into
-    top-C candidates (config.match_per_k_tables picks the K > 1 mode).
+    """One batch: sketch every k of the index, probe each k's bucket
+    table, expand, group into top-C candidates (config.match_per_k_tables
+    picks the K > 1 mode).
 
-    sketch / sort: the kernels by default (sketch_reads, K4); their plain
-    versions (sketch_all_k, row_sort_plain) check them on the same batch.
+    sketch / sort / lookup: the kernels by default (sketch_reads, K4, the
+    bucket probe P); their plain versions (sketch_all_k, row_sort_plain,
+    bucket_lookup.probe_index_plain) check them on the same batch.
+    lookup(hashes, mask, DeviceKIndex) -> (start, length).
     Stats: sketch_overflow and expand_dropped summed over ks,
     candidate_spilled, candidate_spilled_per_k.
     """
     ks = tuple(index.kmer_lengths)
     sketches = sketch(codes, lengths, ks, config.sketch_fraction, sketch_caps)
-    runs = [probe(h, m, index.per_k[k].keys, index.per_k[k].row_ptr) for (h, m, _), k in zip(sketches, ks)]
+    runs = [lookup(h, m, index.per_k[k]) for (h, m, _), k in zip(sketches, ks)]
     sizes = event_sizes([length for _, length in runs])  # the batch's one host sync
     parts, dropped = [], []
     for (start, length), k, size in zip(runs, ks, sizes):
@@ -236,7 +241,8 @@ def _empty_result(index: DeviceIndex) -> QuantResult:
     )
 
 
-def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, static_base=None, group=None):
+def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, route: Dict[str, object],
+            static_base=None, group=None):
     """The EM loop, with config.em_checkpoint's periodic checkpoints.
 
     With a checkpoint path, the iteration budget runs in segments of
@@ -244,7 +250,8 @@ def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, s
     fresh call resumes from a saved (pi, iteration).  Segmenting is
     exact: each segment re-enters with the pi and iteration an
     uninterrupted loop would have, and the `converged` flag stops a run
-    from taking an extra E-step after an early stop.
+    from taking an extra E-step after an early stop.  route: em_route's;
+    every segment shares its segsum plan.
     Returns (pi, iterations).
     """
     kw = dict(
@@ -255,6 +262,7 @@ def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, s
         dtype=config.em_dtype,
         static_base=static_base,
         group=group,
+        **route,
     )
     if not config.em_checkpoint:
         pi, iterations, _ = run_em_tables(tables, num_reads, max_iterations=config.em_max_iterations, **kw)
@@ -292,13 +300,16 @@ def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, s
 def em_assign(tables, static_base, static_has, index: DeviceIndex, config: QuantConfig, *, num_reads: int,
               num_mapped: int, stats: Dict[str, int], timing: Dict[str, float], group=None) -> QuantResult:
     """EM (with checkpoints) + soft assignment over weighted tables, timed
-    into timing["em_assign"]; the QuantResult of every engine.  group: the
-    data group whose ranks each hold a share of the classes (em/em.py);
-    num_reads and num_mapped are then the global counts."""
+    into timing["em_assign"]; the QuantResult of every engine.  The route
+    (em/em.py em_route) is resolved once, and a segsum plan
+    built once, over this process's tables.  group: the data group whose
+    ranks each hold a share of the classes (em/em.py); num_reads and
+    num_mapped are then the global counts."""
     t0 = time.perf_counter()
     names = index.names
     T = len(names)
-    pi, iterations = _run_em(tables, num_reads, T, config, static_base=static_base, group=group)
+    route = em_route(tables, T, config)
+    pi, iterations = _run_em(tables, num_reads, T, config, route, static_base=static_base, group=group)
     pi = pi.to(tables[0][0].device, torch.float64 if config.em_dtype == "float64" else torch.float32)
     weighted, has_entry = assign_reads_tables(
         tables,
@@ -308,6 +319,7 @@ def em_assign(tables, static_base, static_has, index: DeviceIndex, config: Quant
         static_base=static_base,
         static_has=static_has,
         group=group,
+        **route,
     )
     result = QuantResult(
         names=list(names),
@@ -343,8 +355,10 @@ def quantify(
     stream.quantify_streamed past it (O(buffer) device memory at any
     read count), as the JAX package routes.  A fused run reports
     timing["quant_fused"] and timing["quant_fused_per_s"] (reads/s), its
-    clock read after the device has finished; SKETCH_TPU_PROFILE traces
-    either engine (utils/profiling.py).
+    clock read after the device has finished; both engines report the
+    index's set-up, timing["index_upload"] (to_device, bucket tables
+    included).  SKETCH_TPU_PROFILE traces either engine
+    (utils/profiling.py).
     """
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
     R = packed.num_reads
@@ -367,7 +381,7 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     R = packed.num_reads
     T = index.num_transcripts
     dev = index.device
-    timing: Dict[str, float] = {}
+    timing: Dict[str, float] = {"index_upload": index.upload_s}
 
     t0 = time.perf_counter()
     tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, config)

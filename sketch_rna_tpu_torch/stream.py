@@ -397,7 +397,7 @@ def quantify_streamed(
     from sketch_rna_tpu_torch.pipeline import _empty_result
 
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
-    timing: Dict[str, float] = {}
+    timing: Dict[str, float] = {"index_upload": index.upload_s}
     classes = stream_classes(index, reads, config, num_reads_hint, timing)
     if classes.num_reads == 0:
         return _empty_result(index)

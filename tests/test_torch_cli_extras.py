@@ -102,7 +102,7 @@ def test_cli_fused_route_is_named(files, tmp_path, capsys):
     assert "quant route: fused, feed: python" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag,value", [("--expand-per-read", "256"), ("--em-mxu", "auto"), ("--em-segsum", "off")])
+@pytest.mark.parametrize("flag,value", [("--expand-per-read", "256")])
 def test_jax_only_flags_are_accepted_and_ignored(files, tmp_path, capsys, flag, value):
     """A JAX command line runs in the port: the flags of machinery the
     port leaves out are no-ops, each named in one line on stderr."""
@@ -115,6 +115,54 @@ def test_jax_only_flags_are_accepted_and_ignored(files, tmp_path, capsys, flag, 
     assert len(notes) == 1 and flag in notes[0]
     assert open(plain, "rb").read() == open(flagged, "rb").read()
     assert jax_cli(["-o", "quant", flag, value, idx, fqs[1], str(tmp_path / "jax.csv")]) == 0
+
+
+@pytest.mark.parametrize("flags,route", [([], "scatter"), (["--em-segsum", "on"], "segsum"),
+                                         (["--em-segsum", "off"], "scatter"), (["--em-mxu", "auto"], "scatter"),
+                                         (["--em-mxu", "on", "--em-dtype", "float32"], "scatter"),
+                                         (["--em-mxu", "on", "--em-segsum", "on"], "scatter")])
+def test_cli_em_routes_on_the_sample(tmp_path, capsys, flags, route):
+    """The JAX CLI's --em-segsum / --em-mxu run (as tests/test_end_to_end.py
+    checks them there): the route line names the EM route, and --em-mxu on,
+    whose one-hot step the port does not have, says on one line of its own
+    that it takes the scatter route; float64 routes write the sample CSV
+    byte for byte, float32 within 1e-4 relative."""
+    idx, out = str(tmp_path / "s.npz"), str(tmp_path / "o.csv")
+    assert port_cli(["-o", "index", "--device", "cpu", os.path.join(EXAMPLES, "sample.fa"), idx]) == 0
+    capsys.readouterr()
+    assert port_cli(["-o", "quant", "--device", "cpu", *flags, idx, os.path.join(EXAMPLES, "sample.fq"), out]) == 0
+    err = capsys.readouterr().err.splitlines()
+    lines = [ln for ln in err if ln.startswith("quant route:")]
+    assert len(lines) == 1 and lines[0].endswith(f", em: {route}"), lines
+    notes = [ln for ln in err if ln.startswith("--em-mxu on:")]
+    assert len(notes) == (flags[:2] == ["--em-mxu", "on"])
+    expected = os.path.join(EXAMPLES, "sample.expected.csv")
+    if "float32" in flags:
+        _assert_csv_close(out, expected, rtol=1e-4)
+    else:
+        assert open(out, "rb").read() == open(expected, "rb").read()
+
+
+@pytest.mark.parametrize("engine", ["streamed", "sharded", "checkpointed"])
+def test_cli_segsum_engines_equal_fused(files, tmp_path, monkeypatch, capsys, engine):
+    """--em-segsum on through the streamed engine, the sharded engine
+    (mesh (1, 1)) and a checkpointed EM equals the fused default-route
+    run within 1e-9, and each names the segsum route."""
+    _, _, idx, fqs, _, _ = files
+    fused = str(tmp_path / "fused.csv")
+    assert port_cli(["-o", "quant", "--device", "cpu", "--no-native", idx, fqs[0], fused]) == 0
+    extra = {"streamed": ["--batch-size", "64", "--stream-chunk-reads", "128"], "sharded": ["--sharded"],
+             "checkpointed": ["--em-checkpoint", str(tmp_path / "em.npz")]}[engine]
+    if engine == "streamed":
+        monkeypatch.setattr(port_pipeline, "FUSED_MAX_PADDED_READS", 0)
+    out = str(tmp_path / "seg.csv")
+    capsys.readouterr()
+    assert port_cli(["-o", "quant", "--device", "cpu", "--no-native", "--em-segsum", "on", *extra, idx, fqs[0],
+                     out]) == 0
+    route = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("quant route:")]
+    assert len(route) == 1 and route[0].endswith(", em: segsum")
+    assert ("sharded" in route[0]) == (engine == "sharded") and ("streamed" in route[0]) == (engine == "streamed")
+    _assert_csv_close(out, fused)
 
 
 def test_multi_sample_tpm_equals_jax_cli(files, tmp_path):
