@@ -25,21 +25,28 @@ without printing its result line:
                 beside its plain version's, torch.sort's for K4 and the
                 merge, and its bound, and K4 against torch.sort at every
                 width; then the functions both trees share (K3's call,
-                sketch_reads of 2 kb and 20 kb reads, row_sort_wide), with
+                sketch_reads of 2 kb and 20 kb reads, row_sort_wide, P
+                on the first c3 batch, S on the c3 EM's lanes), with
                 --parent also in DIR.  Device time is torch.profiler's, per
                 kernel launch or per whole call, over 50 calls whose inputs
                 rotate through copies past the L2 cache, timed in turns
                 plain, kernel, kernel, plain; the host is left out;
   probe-segsum  P (bucket probe) against its plain version and the
                 searchsorted probe on the first c3 batch's sketches
-                ([8192, 32] per k), [8191, 160] rows from an offset, an
-                empty k and an index whose keys reach 0xFFFFFFFF; S
-                (segmented sum) against its plain version on the c3 EM's
-                lanes, 7 lanes fewer, and one transcript over ~200 blocks,
-                at float64, float32 and int32, bit for bit and bit-stable
-                between calls; then both timed (P per launch, S per call
-                of its two launches, over 20 calls) beside their
-                yardstick calls: the searchsorted probe, index_add_;
+                ([8192, 32] per k), [8191, 160] rows from an offset,
+                [8192, 32] with every lane masked in and with none,
+                [8191, 33] (no multiple of its block), an empty k, an
+                index whose keys reach 0xFFFFFFFF, a table of mb 42 (the
+                widest row one pass of P's loads covers) and one of mb
+                1000 (a deep first bucket: P's loads take 23 passes); S (segmented sum)
+                against its plain version on the c3 EM's lanes, 7 lanes
+                fewer, one transcript over ~200 and ~1,100 blocks and the
+                sample's EM lanes, at float64, float32 and int32, bit for
+                bit and bit-stable between calls; then both timed (P per
+                launch; S per call over 20 calls and
+                launch by launch, on the c3 EM and the sample's, with the
+                plan's build there) beside their yardstick calls: the
+                searchsorted probe, index_add_;
   sample        the port's CLI on examples/sample.{fa,fq}, k=31: the CSV of
                 a plain quant (default flags: float64 EM), of --em-dtype
                 float64 and of --em-segsum on is byte-identical to
@@ -81,7 +88,8 @@ without printing its result line:
                 numbers; per mesh: reads/s, per-rank peak device memory
                 and index bytes (about half at ip = 2), launches per batch
                 of K2, K4, K4-int64 and the merge kernel, and the merge's
-                device time at the gathered shapes beside its bound.  Then
+                device time at the gathered shapes beside its bound and
+                torch.sort's of the same rows.  Then
                 the CLI as two rank processes with --coordinator on
                 examples/sample.fq, each parsing its byte range: rank 0's
                 CSV is byte-identical to examples/sample.expected.csv and
@@ -264,6 +272,32 @@ def in_turns(torch, kernel_fn, plain_fn, arg_sets, kernel, reps=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def launch_split_ms(torch, fn, arg_sets, prefix, reps=None):
+    """Mean device ms per launch of each kernel whose name holds `prefix`
+    in calls of fn(*args) (torch.profiler, as device_ms; a kernel is
+    named by the identifier before its template or argument list), and
+    how many launches of each the trace held."""
+    import re
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = reps or REPS
+    for a in arg_sets[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r in range(reps):
+            fn(*arg_sets[r % len(arg_sets)])
+        torch.cuda.synchronize()
+    times = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name:
+            times[re.search(rf"{prefix}\w*", e.name).group(0)].append(e.time_range.elapsed_us())
+    require(bool(times), f"no {prefix} kernel traced")
+    return {name: (sum(us) / len(us) / 1e3, len(us)) for name, us in times.items()}
+
+
 def bound(nbytes: int, ops: int):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over
     the memory rate and the integer operations over the integer rate."""
@@ -304,30 +338,32 @@ def merge_work(N: int, W: int, itemsize: int):
     return 2 * N * W * itemsize, N * W * (itemsize // 4)
 
 
-def probe_work(mask, length, mb: int):
+def probe_work(hashes, mask, length, table):
     """(bytes, integer operations) of probing [B, S] lanes through a
-    bucket table of width mb: each lane's bool mask in and its two int64
-    outputs out; a masked-in lane also reads its int64 hash (counted in
-    whole 32-byte sectors, 4 lanes each, that hold a masked-in lane), the
-    key part of its row (4 * mb bytes) and, on a hit (length > 0), its
-    8-byte run, and compares mb keys (this run's lanes, counted on the
-    card)."""
+    bucket table: each lane's bool mask in and its two int64 outputs out;
+    the int64 hashes in the 32-byte sectors that hold a masked-in lane;
+    the key part (4 * mb bytes) of each bucket row a masked-in lane needs,
+    each row once, and the 8-byte run of each hit's slot, each slot once
+    (this run's data, counted on the card); mb compares a masked-in
+    lane."""
     flat = mask.reshape(-1)
     n, on = flat.numel(), int(flat.sum())
     padded = flat.new_zeros(n + (-n % 4))
     padded[:n] = flat
     sectors = int(padded.view(-1, 4).any(dim=1).sum())
-    hits = int(((length > 0) & mask).sum())
-    return 17 * n + 32 * sectors + on * 4 * mb + 8 * hits, on * mb
+    h = hashes.reshape(-1) & 0xFFFFFFFF
+    rows = (h[flat] >> table.shift).clamp(max=table.packed.shape[0] - 1).unique().numel()
+    runs = h[((length > 0) & mask).reshape(-1)].unique().numel()
+    return 17 * n + 32 * sectors + rows * 4 * table.mb + 8 * runs, on * table.mb
 
 
 def segsum_work(plan, itemsize: int):
     """(bytes, integer operations) of one segmented sum: each value
     (itemsize), perm entry (4) and is_start flag (1) read once; seg_end
-    (4) and seg_live (1) read and the sum written once a transcript; the
-    scan's 9 additions a lane."""
+    (4) and seg_live (1) read and the sum written once a transcript; one
+    addition a lane, whatever tree adds them."""
     n_pad, T = plan.perm.numel(), plan.seg_end.numel()
-    return n_pad * (itemsize + 5) + T * (5 + itemsize), 9 * n_pad
+    return n_pad * (itemsize + 5) + T * (5 + itemsize), n_pad
 
 
 def counters():
@@ -470,14 +506,17 @@ def main_shape_cases(torch):
             for name, (fn, plain, kern, args, work, shape) in cases.items()}
 
 
-def shared_cases(torch):
+def shared_cases(torch, ctx):
     """Functions that take one signature in this tree and in its parent, at
-    the long-read shapes, inputs made from SEED: name -> (callable,
-    argument copies, calls per trace).  Each is timed per whole call."""
+    the long-read shapes, inputs made from SEED, and P and S at their
+    main-path shapes on the c3 stand-in: name -> (callable, argument
+    copies, calls per trace).  Each is timed per whole call."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.em.segsum import plan_from_tables, segsum_apply
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
+    from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
     from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
     from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 
@@ -495,14 +534,23 @@ def shared_cases(torch):
                                                  REPS if L == 2000 else 5)
     x = _keys(torch, gen, BATCH, 1 << 15, torch.int64)
     cases[f"row_sort_wide [{BATCH}, {1 << 15}] int64"] = (row_sort_wide, [(x,)], 5)
+    t = c3_problem(torch, ctx)["index"].per_k[31].bucket
+    h, m = c3_probe_batch(torch, ctx)[31]
+    cases[f"bucket_lookup k=31 [{BATCH}, {h.shape[1]}]"] = (
+        lambda h, m: bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb), rotation((h, m), 9 * h.numel()), REPS)
+    table = c3_em_table(torch, ctx)
+    plan = plan_from_tables([table], c3_problem(torch, ctx)["index"].num_transcripts)
+    v = torch.rand(table[0].numel(), generator=gen, device=DEVICE, dtype=torch.float64)
+    cases[f"segsum_apply c3 EM lanes [{v.numel()}] float64"] = (lambda v: segsum_apply(plan, v),
+                                                                rotation((v,), 8 * v.numel()), 20)
     return cases
 
 
-def shared_times(torch):
+def shared_times(torch, ctx):
     """shared_cases' device ms per whole call, two traces each: what the
     shared-shapes phase prints for a comparison run."""
     return {name: (device_ms(torch, fn, args, reps=reps) + device_ms(torch, fn, args, reps=reps)) / 2
-            for name, (fn, args, reps) in shared_cases(torch).items()}
+            for name, (fn, args, reps) in shared_cases(torch, ctx).items()}
 
 
 def parent_times(torch, parent: Path):
@@ -532,7 +580,7 @@ def _halves(torch, x, w):
     return torch.sort(x.view(-1, w), dim=1).values.view(x.shape[0], 2 * w)
 
 
-def phase_kernels(torch, results, parent=None):
+def phase_kernels(torch, results, ctx, parent=None):
     """Every kernel against its plain version, bit for bit, at the edges
     of its domain; then device times (the host left out) at the main-path
     shapes and, for K4, at every width beside torch.sort; then the
@@ -719,15 +767,18 @@ def phase_kernels(torch, results, parent=None):
     # The functions both trees share, per whole call; with --parent, the
     # parent's before and after this tree's.
     p1 = parent_times(torch, parent) if parent else None
-    mine = shared_times(torch)
+    mine = shared_times(torch, ctx)
     p2 = parent_times(torch, parent) if parent else None
+    owners = {"row_sort_wide": "merge", "bucket_lookup": "P", "segsum_apply": "S"}
     for name, ms in mine.items():
-        owner = results["merge" if name.startswith("row_sort_wide") else "K3"]
+        owner = results[owners.get(name.split()[0], "K3")]
         owner.setdefault("shared_ms", {})[name] = ms
         line = f"[kernels] {name}: device ms per call {ms:.5f}"
-        if parent:
+        if parent and name in p1 and name in p2:
             owner.setdefault("parent_shared_ms", {})[name] = (p1[name] + p2[name]) / 2
             line += f"; parent ({parent.name}) {p1[name]:.5f} / {p2[name]:.5f}"
+        elif parent:
+            line += f"; the parent ({parent.name}) does not time it"
         print(line)
 
 
@@ -748,23 +799,65 @@ def c3_em_table(torch, ctx):
     return ctx["c3_em"]
 
 
+def c3_probe_batch(torch, ctx):
+    """The first c3 batch's sketches, k -> (hashes, mask) [8192, 32] (the
+    fused path's width at 100 bp); built once."""
+    if "c3_probe" not in ctx:
+        import numpy as np
+
+        from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+
+        c3 = c3_problem(torch, ctx)
+        cfg = c3["config"]
+        ks = cfg.kmer_lengths
+        c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
+        n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
+        caps = tuple(cfg.sketch_capacity_for(k, 104) for k in ks)
+        ctx["c3_probe"] = {k: (h.contiguous(), m.contiguous())
+                           for (h, m, _), k in zip(sketch_reads(c, n, ks, cfg.sketch_fraction, caps), ks)}
+    return ctx["c3_probe"]
+
+
+def sample_em_lanes(torch):
+    """The sample's EM lanes (examples/sample.{fa,fq}, k=31, 30
+    transcripts): the candidate table the fused engine runs its EM over,
+    unfolded (fewer than 1024 padded reads).  Returns (flat tids, T)."""
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.index.artifact import to_device
+    from sketch_rna_tpu_torch.index.build import build_index
+    from sketch_rna_tpu_torch.io.fasta import load_fasta
+    from sketch_rna_tpu_torch.io.fastq import load_fastq_dict
+    from sketch_rna_tpu_torch.io.packing import pack_reads
+    from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
+    from sketch_rna_tpu_torch.pipeline import match_rows
+
+    cfg = QuantConfig()
+    ex = ROOT / "examples"
+    index = to_device(build_index(load_fasta(str(ex / "sample.fa")), cfg, device=DEVICE), DEVICE)
+    reads = load_fastq_dict(str(ex / "sample.fq"), min_len=31)
+    packed, _, _ = pack_reads(list(reads.values()), list(reads.keys()), min_len=31)
+    tid, score, _, _ = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, cfg)
+    W = min(pow2ceil(max(int((score > 0).sum(dim=1).max()), 1)), cfg.candidate_capacity)
+    return tid[:, :W].reshape(-1).contiguous(), index.num_transcripts
+
+
 def phase_probe_segsum(torch, results, ctx):
     """P (bucket probe) and S (segmented sum) against their plain versions
     on the card, bit for bit, then timed at their main-path shapes beside
     the yardstick call: P against match/probe.py's searchsorted probe on
-    the same hashes and index, S against one index_add_ of the same
-    values."""
+    the same hashes and index, S against one
+    index_add_ of the same values, per call and launch by launch, on the
+    c3 EM's lanes and on the sample's."""
     import numpy as np
 
     from sketch_rna_tpu_torch.em.segsum import build_segsum_plan, plan_from_tables, segsum_apply, segsum_plain
     from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup, bucket_lookup_plain, device_bucket_table
     from sketch_rna_tpu_torch.match.probe import probe
-    from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
     from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold
 
     c3 = c3_problem(torch, ctx)
     index, cfg = c3["index"], c3["config"]
-    ks, f = cfg.kmer_lengths, cfg.sketch_fraction
+    f = cfg.sketch_fraction
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     print(f"[probe-segsum] P tables of the c3 index: " + ", ".join(
         f"k={k}: [{ki.bucket.packed.shape[0]}, {ki.bucket.packed.shape[1]}] (mb {ki.bucket.mb}, shift "
@@ -773,45 +866,84 @@ def phase_probe_segsum(torch, results, ctx):
     def u32(x):
         return torch.from_numpy(np.asarray(x, np.uint32).astype(np.int64)).to(DEVICE)
 
+    def table_of(keys_np, rng):
+        """(table, keys, row_ptr) of sorted uint32 keys with random runs."""
+        rp = np.concatenate([[0], np.cumsum(rng.integers(1, 6, keys_np.size))]).astype(np.int64)
+        keys, row_ptr = u32(keys_np), torch.from_numpy(rp).to(DEVICE)
+        return device_bucket_table(keys_np, keys, row_ptr), keys, row_ptr
+
+    def rand_mask(shape, p):
+        return torch.rand(shape, generator=gen, device=DEVICE) < p
+
     # name -> (hashes, mask, table, keys, row_ptr): the first c3 batch's
     # sketches per k ([8192, 32], the fused path's width at 100 bp); a
     # 2,000 bp read batch's width ([8191, 160] rows from an offset, 60% of
-    # the lanes the index's keys); an empty k; an index whose keys reach
-    # 0xFFFFFFFF (fraction 0.9999 and the top key a fraction-1.0 index
-    # can hold), probed with its keys, random words and 0xFFFFFFFF.
-    c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
-    n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
-    caps = tuple(cfg.sketch_capacity_for(k, 104) for k in ks)
+    # the lanes the index's keys); of those hashes, [8192, 32] with every
+    # lane masked in and with none, and [8191, 33] (no multiple of P's
+    # 256-lane block); an empty k; an index whose keys reach 0xFFFFFFFF
+    # (fraction 0.9999 and the top key a fraction-1.0 index can hold),
+    # probed with its keys, random words and 0xFFFFFFFF; a table of mb 42
+    # (3 * mb <= 128, the widest row the builder's bucket merging makes,
+    # which one pass of P's loads covers); a table of mb 1000, whose first
+    # histogram the builder cannot merge (a dense cluster under a key of
+    # 0xFFFFFFFF), so P's loads take several passes.
     cases = {}
-    for (h, m, _), k in zip(sketch_reads(c, n, ks, f, caps), ks):
+    for k, (h, m) in c3_probe_batch(torch, ctx).items():
         ki = index.per_k[k]
         cases[f"k={k} [{BATCH}, {h.shape[1]}]"] = (h, m, ki.bucket, ki.keys, ki.row_ptr)
     ki = index.per_k[31]
+    c31 = (ki.bucket, ki.keys, ki.row_ptr)
     S = cfg.sketch_capacity_for(31, 2000)
     pick = torch.randint(0, ki.keys.numel(), (BATCH, S), generator=gen, device=DEVICE)
     miss = torch.randint(0, fracminhash_threshold(f) + 1, (BATCH, S), generator=gen, device=DEVICE)
-    h = torch.where(torch.rand((BATCH, S), generator=gen, device=DEVICE) < 0.6, ki.keys[pick], miss)
-    m = torch.rand((BATCH, S), generator=gen, device=DEVICE) < 98.5 / S
-    cases[f"k=31 [{BATCH - 1}, {S}] at an offset"] = (h[1:], m[1:], ki.bucket, ki.keys, ki.row_ptr)
+    h = torch.where(rand_mask((BATCH, S), 0.6), ki.keys[pick], miss)
+    m = rand_mask((BATCH, S), 98.5 / S)
+    cases[f"k=31 [{BATCH - 1}, {S}] at an offset"] = (h[1:], m[1:], *c31)
+    cases[f"k=31 [{BATCH}, 32] every lane masked in"] = (h[:, :32], torch.ones_like(m[:, :32]), *c31)
+    cases[f"k=31 [{BATCH}, 32] no lane masked in"] = (h[:, :32], torch.zeros_like(m[:, :32]), *c31)
+    cases[f"k=31 [{BATCH - 1}, 33] at an offset"] = (h[1:, :33], m[1:, :33], *c31)
     empty = u32([])
     cases["empty k"] = (h, m, device_bucket_table(np.zeros(0, np.uint32), empty, torch.zeros(1, dtype=torch.int64,
                         device=DEVICE)), empty, torch.zeros(1, dtype=torch.int64, device=DEVICE))
     rng = np.random.default_rng(SEED + 12)
     top = np.unique(np.concatenate([rng.integers(0, fracminhash_threshold(0.9999), 1 << 20, dtype=np.uint64),
                                     [0xFFFFFFFF]]).astype(np.uint32))
-    rp = np.concatenate([[0], np.cumsum(rng.integers(1, 6, top.size))]).astype(np.int64)
-    keys, row_ptr = u32(top), torch.from_numpy(rp).to(DEVICE)
-    q = torch.where(torch.rand((BATCH, 32), generator=gen, device=DEVICE) < 0.5,
+    t, keys, row_ptr = table_of(top, rng)
+    q = torch.where(rand_mask((BATCH, 32), 0.5),
                     keys[torch.randint(0, keys.numel(), (BATCH, 32), generator=gen, device=DEVICE)],
                     torch.randint(0, 1 << 32, (BATCH, 32), generator=gen, device=DEVICE))
     q[:, 0] = 0xFFFFFFFF
-    cases["fraction 0.9999 + key 0xFFFFFFFF [8192, 32]"] = (
-        q, torch.rand((BATCH, 32), generator=gen, device=DEVICE) < 0.8, device_bucket_table(top, keys, row_ptr),
-        keys, row_ptr)
+    cases["fraction 0.9999 + key 0xFFFFFFFF [8192, 32]"] = (q, rand_mask((BATCH, 32), 0.8), t, keys, row_ptr)
+    # mb 42: ~2,000 random words over 1,024 buckets (shift 22) and 42 keys
+    # in bucket 5, probed half with keys of that bucket.
+    rand = rng.integers(0, 1 << 32, 2000, dtype=np.uint64)
+    wide = np.unique(np.concatenate([rand[(rand >> 22) != 5],
+                                     (5 << 22) + rng.choice(1 << 22, 42, replace=False).astype(np.uint64)]))
+    t, keys, row_ptr = table_of(wide.astype(np.uint32), rng)
+    require(t.mb == 42, f"the one-pass table has mb {t.mb}, not 42")
+    in5 = keys[(keys >> 22) == 5]
+    q = torch.where(rand_mask((BATCH, 32), 0.5),
+                    in5[torch.randint(0, in5.numel(), (BATCH, 32), generator=gen, device=DEVICE)],
+                    torch.randint(0, 1 << 32, (BATCH, 32), generator=gen, device=DEVICE))
+    cases[f"mb 42 [{BATCH}, 32]"] = (q, rand_mask((BATCH, 32), 0.9), t, keys, row_ptr)
+    # mb 1000: 1,000 keys in [0, 2000] and 0xFFFFFFFF over 1,024 buckets
+    # (shift 22), all but the last in bucket 0; probed a third with those
+    # keys, a third with other words below 2001 (misses through the whole
+    # deep row) and a third with random words, column 0 0xFFFFFFFF.
+    deep = np.concatenate([np.sort(rng.choice(2001, 1000, replace=False)), [0xFFFFFFFF]]).astype(np.uint32)
+    t, keys, row_ptr = table_of(deep, rng)
+    require(t.mb == 1000 and t.shift == 22, f"the deep table has mb {t.mb}, shift {t.shift}, not 1000, 22")
+    third = torch.randint(0, 3, (BATCH, 32), generator=gen, device=DEVICE)
+    q = torch.where(third == 0, keys[torch.randint(0, keys.numel() - 1, (BATCH, 32), generator=gen, device=DEVICE)],
+                    torch.where(third == 1, torch.randint(0, 2001, (BATCH, 32), generator=gen, device=DEVICE),
+                                torch.randint(0, 1 << 32, (BATCH, 32), generator=gen, device=DEVICE)))
+    q[:, 0] = 0xFFFFFFFF
+    cases[f"mb 1000 [{BATCH}, 32]"] = (q, rand_mask((BATCH, 32), 0.9), t, keys, row_ptr)
+
     for name, (h, m, t, keys, row_ptr) in cases.items():
-        got = bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb)
         want = bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)
         runs = probe(h, m, keys, row_ptr)
+        got = bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb)
         torch.cuda.synchronize()
         require(same_tensors(torch, got, want), f"P differs from bucket_lookup_plain at {name}")
         require(same_tensors(torch, got, runs), f"P differs from the searchsorted probe at {name}")
@@ -820,21 +952,30 @@ def phase_probe_segsum(torch, results, ctx):
               f"{int(m.sum())} lanes masked in, {int((got[1] > 0).sum())} hits")
 
     # S on the c3 EM's lanes, on a lane count that is no multiple of 512,
-    # and on one transcript spanning ~200 blocks; float64, float32, int32.
+    # on one transcript spanning ~200 blocks and ~1,100 blocks (its carries
+    # span three carry blocks of 512: the top scan runs), and on the
+    # sample's EM lanes; float64, float32, int32.
     table = c3_em_table(torch, ctx)
     T = index.num_transcripts
     flat_tid = table[0].reshape(-1)
     n = flat_tid.numel()
-    spread = torch.randint(0, T, (50_000,), generator=gen, device=DEVICE, dtype=torch.int32)
-    one_long = torch.cat([torch.full((100_000,), 17, dtype=torch.int32, device=DEVICE), spread])
-    one_long = one_long[torch.randperm(one_long.numel(), generator=gen, device=DEVICE)]
-    plans = {f"c3 EM lanes [{n}]": (plan_from_tables([table], T), flat_tid),
-             f"c3 EM lanes [{n - 7}]": (build_segsum_plan(flat_tid[: n - 7], T), flat_tid[: n - 7]),
-             f"one transcript over {100_000 // 512}+ blocks [{one_long.numel()}]": (build_segsum_plan(one_long, T),
-                                                                                  one_long)}
+
+    def one_long(blocks):
+        spread = torch.randint(0, T, (50_000,), generator=gen, device=DEVICE, dtype=torch.int32)
+        tids = torch.cat([torch.full((blocks * 512,), 17, dtype=torch.int32, device=DEVICE), spread])
+        return tids[torch.randperm(tids.numel(), generator=gen, device=DEVICE)]
+
+    sample_tid, sample_T = sample_em_lanes(torch)
+    plans = {f"c3 EM lanes [{n}]": (plan_from_tables([table], T), flat_tid, T),
+             f"c3 EM lanes [{n - 7}]": (build_segsum_plan(flat_tid[: n - 7], T), flat_tid[: n - 7], T)}
+    for blocks in (195, 1100):
+        tids = one_long(blocks)
+        plans[f"one transcript over {blocks}+ blocks [{tids.numel()}]"] = (build_segsum_plan(tids, T), tids, T)
+    plans[f"sample EM lanes [{sample_tid.numel()}]"] = (build_segsum_plan(sample_tid, sample_T), sample_tid,
+                                                        sample_T)
     s_cases = {}
-    for name, (plan, tids) in plans.items():
-        require(int(plan.carry_on.sum()) > 0 or "c3" in name, f"no run crosses a block at {name}")
+    for name, (plan, tids, T_) in plans.items():
+        require(int(plan.carry_on.sum()) > 0 or not name.startswith("one"), f"no run crosses a block at {name}")
         for dtype in (torch.float64, torch.float32, torch.int32):
             if dtype == torch.int32:
                 v = torch.randint(0, 3, (tids.numel(),), generator=gen, device=DEVICE, dtype=torch.int32)
@@ -844,24 +985,41 @@ def phase_probe_segsum(torch, results, ctx):
             torch.cuda.synchronize()
             require(torch.equal(got, want), f"S differs from segsum_plain at {name} {dtype}")
             require(torch.equal(got, again), f"S is not bit-stable between two calls at {name} {dtype}")
-            ref = torch.zeros(T, dtype=torch.float64, device=DEVICE).index_add_(0, tids.long(), v.double())
+            ref = torch.zeros(T_, dtype=torch.float64, device=DEVICE).index_add_(0, tids.long(), v.double())
             rel = float(((got.double() - ref).abs() / ref.abs().clamp_min(1e-300)).max())
             require(rel <= (1e-12 if dtype == torch.float64 else 1e-4 if dtype == torch.float32 else 0),
                     f"S at {name} {dtype} is {rel} relative from the float64 index_add_")
             record(results, "S", max_abs_err=float((got.double() - want.double()).abs().max()))
-            s_cases[(name, dtype)] = (plan, tids, v)
+            s_cases[(name, dtype)] = (plan, tids, v, T_)
         print(f"[probe-segsum] S {name}: bit-equal to segsum_plain and between calls at float64, float32, int32; "
-              f"{int(plan.carry_on.sum())} block carries")
+              f"{int(plan.carry_on.sum())} block carries, {plan.num_transcripts} transcripts")
 
-    # Device time: P per launch, S per whole call (its two launches).
+    # Past 512 carry blocks (n_pad > 2^27 lanes) S's top scan takes its
+    # other shape, one block of 1024 x 8: 2^27 + 153,600 lanes over the
+    # c3 transcripts, float64.
+    big = torch.randint(0, T, ((1 << 27) + 300 * 512,), generator=gen, device=DEVICE, dtype=torch.int32)
+    plan = build_segsum_plan(big, T)
+    v = torch.rand(big.numel(), generator=gen, device=DEVICE, dtype=torch.float64)
+    got, again, want = segsum_apply(plan, v), segsum_apply(plan, v), segsum_plain(plan, v)
+    ref = torch.zeros(T, dtype=torch.float64, device=DEVICE).index_add_(0, big.long(), v)
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and torch.equal(got, again) and rel <= 1e-12,
+            f"S at {big.numel()} lanes: equal to segsum_plain {torch.equal(got, want)}, stable "
+            f"{torch.equal(got, again)}, {rel} relative from index_add_")
+    print(f"[probe-segsum] S [{big.numel()}] lanes ({plan.perm.numel() // 512 // 512 + 1} carry blocks: the top scan "
+          f"at 1024 x 8), float64: bit-equal to segsum_plain and between calls, {rel:.3g} relative from index_add_")
+    del big, plan, v, got, again, want, ref
+    torch.cuda.empty_cache()
+
+    # Device time: P per launch, S per whole call and per launch.
     print(f"[probe-segsum] P and S device ms, torch.profiler over {REPS} (P) and 20 (S) calls, "
           "plain / kernel / kernel / plain")
     by_shape = {}
     for name, (h, m, t, keys, row_ptr) in cases.items():
-        if name.startswith("empty"):
+        if name.startswith("empty") or "no lane" in name:
             continue
-        hm = (h.contiguous(), m.contiguous())
-        arg_sets = rotation(hm, 9 * h.numel())
+        arg_sets = rotation((h.contiguous(), m.contiguous()), 9 * h.numel())
 
         def kern(h, m, t=t):
             return bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb)
@@ -871,7 +1029,7 @@ def phase_probe_segsum(torch, results, ctx):
 
         ms, plain_ms = in_turns(torch, kern, plain, arg_sets, "bucket_probe_kernel")
         lib_ms = device_ms(torch, lambda h, m, keys=keys, row_ptr=row_ptr: probe(h, m, keys, row_ptr), arg_sets)
-        nbytes, ops = probe_work(m, bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)[1], t.mb)
+        nbytes, ops = probe_work(h, m, bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)[1], t)
         b_ms, by = bound(nbytes, ops)
         timed = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
                      bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, shape=name, timed="per launch")
@@ -883,8 +1041,8 @@ def phase_probe_segsum(torch, results, ctx):
               f"bound")
     record(results, "P", by_shape=by_shape)
     by_shape = {}
-    for (name, dtype), (plan, tids, v) in s_cases.items():
-        if name != f"c3 EM lanes [{n}]":
+    for (name, dtype), (plan, tids, v, T_) in s_cases.items():
+        if not (name == f"c3 EM lanes [{n}]" or (name.startswith("sample") and dtype == torch.float64)):
             continue
         arg_sets = rotation((v,), v.numel() * v.element_size())
         idx = tids.long()
@@ -895,22 +1053,28 @@ def phase_probe_segsum(torch, results, ctx):
         def plain(v, plan=plan):
             return segsum_plain(plan, v)
 
-        # 20 calls a trace: the plain version's carry loop makes a trace
-        # of hundreds of operations a call.
+        def scatter(v, idx=idx, T_=T_):
+            return torch.zeros(T_, dtype=v.dtype, device=DEVICE).index_add_(0, idx, v)
+
         ms, plain_ms = in_turns(torch, kern, plain, arg_sets, None, reps=20)
-        lib_ms = device_ms(torch, lambda v, idx=idx: torch.zeros(T, dtype=v.dtype, device=DEVICE).index_add_(0, idx, v),
-                           arg_sets, reps=20)
+        lib_ms = device_ms(torch, scatter, arg_sets, reps=20)
+        split = launch_split_ms(torch, kern, arg_sets, "segsum_", reps=20)
         nbytes, ops = segsum_work(plan, v.element_size())
         b_ms, by = bound(nbytes, ops)
         key = f"{name} {str(dtype)[6:]}"
         timed = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
-                     bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, shape=key, timed="per call")
+                     bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, shape=key, timed="per call",
+                     launch_ms={k: launch_ms for k, (launch_ms, _) in split.items()})
+        if name.startswith("sample"):  # ROADMAP's auto condition: the plan's build beside the scatter
+            timed["plan_ms"] = device_ms(torch, lambda t, T_=T_: build_segsum_plan(t, T_), [(tids,)], reps=20)
         by_shape[key] = timed
         if name.startswith("c3") and dtype == torch.float64:
             record(results, "S", **timed)
         print(f"[probe-segsum] S {key}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, index_add_ "
               f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes), {100 * b_ms / ms:.1f}% of "
-              f"bound")
+              "bound; per launch "
+              + ", ".join(f"{k} {t_ms * 1e3:.2f} us ({c} traced)" for k, (t_ms, c) in split.items())
+              + (f"; the plan's build {timed['plan_ms'] * 1e3:.2f} us" if "plan_ms" in timed else ""))
     record(results, "S", by_shape=by_shape)
 
 
@@ -1524,7 +1688,7 @@ def phase_sharded(torch, results, ctx, smi):
     from sketch_rna_tpu_torch.index.artifact import save_index
     from sketch_rna_tpu_torch.index.shard import shard_to_device
     from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.match.row_sort import bitonic_merge_pair, merge_pairs
+    from sketch_rna_tpu_torch.match.row_sort import bitonic_merge_pair, merge_pairs, row_sort_plain
     from sketch_rna_tpu_torch.pipeline import quantify, quantify_sharded
 
     c3 = c3_problem(torch, ctx)
@@ -1660,12 +1824,14 @@ def phase_sharded(torch, results, ctx, smi):
 
                     require(torch.equal(merge_pairs(x), plain(x)),
                             f"merge_pairs differs from bitonic_merge_pair at [{rows}, {width}] {dtype_name}")
-                    ms, plain_ms = in_turns(torch, merge_pairs, plain, rotation((x,), nbytes // 2), "merge_kernel")
+                    arg_sets = rotation((x,), nbytes // 2)
+                    ms, plain_ms = in_turns(torch, merge_pairs, plain, arg_sets, "merge_kernel")
+                    sort_ms = device_ms(torch, row_sort_plain, arg_sets)  # the yardstick: torch.sort of the rows
                     b_ms, by = bound(nbytes, ops)
-                    timed[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+                    timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=sort_ms, bound_ms=b_ms, bound_by=by)
                     print(f"[sharded] merge [{rows}, {width}] {dtype_name} (a gathered batch's round): kernel "
-                          f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({by}), "
-                          f"{100 * b_ms / ms:.1f}% of bound")
+                          f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, torch.sort {sort_ms * 1e3:.2f} us, "
+                          f"bound {b_ms * 1e3:.3f} us ({by}), {100 * b_ms / ms:.1f}% of bound")
                     del x
                 total_ms += timed[key]["ms"]
                 total_bound += timed[key]["bound_ms"]
@@ -1968,7 +2134,7 @@ def main() -> int:
         from sketch_rna_tpu_torch import kernels
 
         kernels.library()
-        print(json.dumps({"shared_ms": shared_times(torch)}))
+        print(json.dumps({"shared_ms": shared_times(torch, {})}))
         return 0
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -1977,7 +2143,7 @@ def main() -> int:
                for name, (fn, src, rep) in KERNELS.items()}
     ctx = {}  # data that several phases share (the c3 index and reads)
     runs = {
-        "kernels": lambda: phase_kernels(torch, results, args.parent.resolve() if args.parent else None),
+        "kernels": lambda: phase_kernels(torch, results, ctx, args.parent.resolve() if args.parent else None),
         "probe-segsum": lambda: phase_probe_segsum(torch, results, ctx),
         "sample": phase_sample,
         "sample-multik": phase_sample_multik,

@@ -13,31 +13,42 @@
 //
 // Bound: device bytes.  Each value, perm entry and is_start flag is read
 // once (v, 4 + 1 bytes a lane), seg_end and seg_live once and ps written
-// once a transcript.  The gather v[perm] is random: on the c3 EM's lanes
-// that is the term that matters, as it was on the TPU.
+// once a transcript; one addition a lane.  The gather v[perm] is random:
+// on the c3 EM's lanes (33 MB of float64 values) the 50 MB L2 serves it,
+// and it is the floor.
 //
-// Design: two launches, no atomics.  Pass 1 gives each plan block of 512
-// sorted lanes a block of 512 threads.  Thread i loads v[perm[i]] (0 for
-// a pad lane) and its run-start flag, then runs a segmented inclusive
-// Hillis-Steele scan over the whole block: at step d (1, 2, .., 256) a
-// lane whose run does not start within its window takes left + self,
-// left being lane i - d, and ORs in lane i - d's flag.  Lane i - d lies in
-// another warp for the first lanes of every warp at every step, so each
-// step goes through shared memory between two barriers (warp shuffles
-// cannot reach across warps).  Every addition combines lanes of one run,
-// and the tree is the same on every call.  A lane that ends its run in
-// the block (the next lane starts a run, or it is the block's last)
-// stores its partial to a scratch row.  Pass 2 gives
-// each transcript a warp: ps[t] = the partial at seg_end[t], plus, when
-// the run began in an earlier block, the sum of the earlier blocks' last
-// partials (the chain of blocks whose carry_on is set for t, its first
-// block found by a binary search), taken pairwise in a fixed tree over
-// the chain's positions, 32 positions a step, so the plain version
-// computes it with a few whole-tensor steps.  A transcript with a
-// million lanes spans ~2,000 blocks; walked one block at a time by one
-// thread, such chains made a call on the c3 EM's 4.1M lanes take 3.7 ms
-// on an H100.  So a result is bit-identical from run to run, where
-// index_add_'s atomics add in the order the hardware happens to take.
+// Design: one fixed tree, no atomics, at most four launches.  Every level
+// is the same block scan (block_scan below) of THREADS x PER elements:
+// each thread sums its PER elements serially (a segmented sum: a start
+// flag restarts it), a warp scans its 32 thread totals with five
+// __shfl_up_sync steps and no barrier, the warp totals go through shared
+// memory with one barrier, each thread folds the totals of the warps
+// before its own (left to right), and a fix-up adds the carry to the
+// thread's elements before its first start.
+//   1. segsum_scan_kernel: a block of 128 threads per plan block of 512
+//      sorted lanes, 4 lanes a thread (one 16-byte perm load, one 32-bit
+//      word of is_start flags, four independent value gathers).  A lane
+//      that ends its run in the block stores its partial to q.
+//   2. segsum_carry_kernel: the blocks' last partials, chained by
+//      carry_on / carry_tid, are a segmented sequence of their own, scanned
+//      512 to a block in the same way.  A block without carry_on enters as
+//      a zero; a run starts at block b unless carry_on[b - 1], carry_on[b]
+//      and carry_tid[b - 1] == carry_tid[b].  Each element's scan goes to
+//      s1, and a flag says whether its run reaches back to its carry
+//      block's first element.
+//   3. segsum_top_kernel: one block scans the carry blocks' totals into
+//      s2: 128 x 4 up to 512 of them (n_pad up to 2^27), else 1024 x 8
+//      (at most 8,192: n_pad < 2^31).
+//   4. segsum_final_kernel: one thread a transcript, coalesced: ps[t] =
+//      q[seg_end[t]] + the carry total at b = seg_end[t] / 512 - 1, taken
+//      when carry_on[b] and carry_tid[b] == t; that total is s1[b], plus
+//      s2 of the previous carry block when the run reaches back past
+//      its own.  An O(1) test where the previous design searched.
+// Launches 2 and 3 run only when there is more than one block to carry
+// across.  On the c3 EM's 4,113,920 padded lanes: 8,035 plan blocks, 16
+// carry blocks, one top block.  So a result is bit-identical from run to
+// run, where index_add_'s atomics add in the order the hardware happens to
+// take.
 
 #include <cstdint>
 
@@ -45,119 +56,206 @@
 
 namespace {
 
-constexpr int kBlock = 512;
+constexpr int kBlock = 512;        // lanes of a plan block, elements of a carry block
+constexpr int kScanThreads = 128;  // 4 elements a thread
+constexpr int kTopThreads = 1024;  // the top level past 512 carry blocks, 8 elements a thread
+constexpr int kTopPer = 8;
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-    segsum_scan_kernel(const T* __restrict__ v, int n, const int* __restrict__ perm,
-                       const uint8_t* __restrict__ is_start, T* __restrict__ q) {
-  __shared__ T s_v[kBlock];
-  __shared__ int s_f[kBlock];
-  const int i = threadIdx.x;
-  const long long g = static_cast<long long>(blockIdx.x) * kBlock + i;
-  const int p = perm[g];
-  T x = p < n ? v[p] : T(0);
-  int f = is_start[g];
+// The segmented inclusive scan of a block's THREADS x PER elements, PER
+// consecutive ones a thread in x, their start flags a bit each in starts.
+// On return x holds each element's partial from its run's start (or the
+// block's first element); the result has bit r set when element r's run
+// reaches back to the block's first element.  em/segsum.py _block_scan
+// is the same tree in whole-tensor steps.
+template <typename T, int THREADS, int PER>
+__device__ __forceinline__ unsigned block_scan(T (&x)[PER], unsigned starts, T* s_val, int* s_flag) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int d = 1; d < kBlock; d <<= 1) {
-    s_v[i] = x;
-    s_f[i] = f;
-    __syncthreads();
-    if (i >= d) {
-      const T xl = s_v[i - d];
-      const int fl = s_f[i - d];
-      if (!f) x = xl + x;
+  for (int r = 1; r < PER; ++r) {
+    if (!((starts >> r) & 1u)) x[r] = x[r - 1] + x[r];
+  }
+  T a = x[PER - 1];
+  int f = starts != 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T al = __shfl_up_sync(0xffffffffu, a, d);
+    const int fl = __shfl_up_sync(0xffffffffu, f, d);
+    if (lane >= d) {
+      if (!f) a = al + a;
       f |= fl;
     }
-    __syncthreads();
   }
-  if (i == kBlock - 1 || is_start[g + 1]) q[g] = x;
+  const T ea = __shfl_up_sync(0xffffffffu, a, 1);  // the warp's threads before this one
+  const int ef = __shfl_up_sync(0xffffffffu, f, 1);
+  if (lane == 31) {
+    s_val[warp] = a;
+    s_flag[warp] = f;
+  }
+  __syncthreads();
+  T ca = T(0);  // the warps before this one
+  int cf = 0;
+  if (warp > 0) {
+    ca = s_val[0];
+    cf = s_flag[0];
+    for (int u = 1; u < warp; ++u) {
+      const T wu = s_val[u];
+      const int fu = s_flag[u];
+      ca = fu ? wu : ca + wu;
+      cf |= fu;
+    }
+  }
+  T carry = ca;  // into this thread, from the block's elements before it
+  int pf = cf;
+  bool has = warp > 0;
+  if (lane > 0) {
+    carry = (!ef && warp > 0) ? ca + ea : ea;
+    pf = ef | cf;
+    has = true;
+  }
+  unsigned reach = 0;
+  unsigned seen = 0;
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    seen |= (starts >> r) & 1u;
+    if (!seen) {
+      if (has) x[r] = carry + x[r];
+      if (!pf) reach |= 1u << r;
+    }
+  }
+  return reach;
 }
 
-// One warp per transcript t (32 transcripts a block of 256 threads).
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+    segsum_scan_kernel(const T* __restrict__ v, int n, const int* __restrict__ perm,
+                       const uint8_t* __restrict__ is_start, T* __restrict__ q) {
+  __shared__ T s_val[kScanThreads / 32];
+  __shared__ int s_flag[kScanThreads / 32];
+  const int tid = threadIdx.x;
+  const long long g = static_cast<long long>(blockIdx.x) * kBlock + 4 * tid;
+  const int4 p = *reinterpret_cast<const int4*>(perm + g);
+  const unsigned word = *reinterpret_cast<const unsigned*>(is_start + g);
+  T x[4];
+  x[0] = p.x < n ? v[p.x] : T(0);
+  x[1] = p.y < n ? v[p.y] : T(0);
+  x[2] = p.z < n ? v[p.z] : T(0);
+  x[3] = p.w < n ? v[p.w] : T(0);
+  unsigned starts = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) starts |= ((word >> (8 * r)) & 0xffu) ? 1u << r : 0u;
+  block_scan<T, kScanThreads, 4>(x, starts, s_val, s_flag);
+  const bool last_ends = tid == kScanThreads - 1 || is_start[g + 4] != 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (r < 3 ? ((starts >> (r + 1)) & 1u) : last_ends) q[g + r] = x[r];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+    segsum_carry_kernel(const T* __restrict__ q, const int* __restrict__ carry_tid,
+                        const uint8_t* __restrict__ carry_on, int nblk, T* __restrict__ s1,
+                        uint8_t* __restrict__ reach1) {
+  __shared__ T s_val[kScanThreads / 32];
+  __shared__ int s_flag[kScanThreads / 32];
+  const int b0 = blockIdx.x * kBlock + 4 * threadIdx.x;
+  T x[4];
+  unsigned starts = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int b = b0 + r;
+    const bool on = b < nblk && carry_on[b];
+    x[r] = on ? q[static_cast<long long>(b) * kBlock + kBlock - 1] : T(0);
+    const bool cont = on && b > 0 && carry_on[b - 1] && carry_tid[b - 1] == carry_tid[b];
+    starts |= cont ? 0u : 1u << r;
+  }
+  const unsigned reach = block_scan<T, kScanThreads, 4>(x, starts, s_val, s_flag);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (b0 + r < nblk) {
+      s1[b0 + r] = x[r];
+      reach1[b0 + r] = (reach >> r) & 1u;
+    }
+  }
+}
+
+template <typename T, int THREADS, int PER>
+__global__ void __launch_bounds__(THREADS)
+    segsum_top_kernel(const T* __restrict__ s1, const uint8_t* __restrict__ reach1, int nblk, int nblk1,
+                      T* __restrict__ s2) {
+  __shared__ T s_val[THREADS / 32];
+  __shared__ int s_flag[THREADS / 32];
+  const int c0 = PER * threadIdx.x;
+  T x[PER];
+  unsigned starts = 0;
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const int c = c0 + r;
+    const int last = min(c * kBlock + kBlock - 1, nblk - 1);  // carry block c's total
+    x[r] = c < nblk1 ? s1[last] : T(0);
+    starts |= (c >= nblk1 || !reach1[last]) ? 1u << r : 0u;
+  }
+  block_scan<T, THREADS, PER>(x, starts, s_val, s_flag);
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    if (c0 + r < nblk1) s2[c0 + r] = x[r];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
-    segsum_gather_kernel(const T* __restrict__ q, const int* __restrict__ seg_end,
-                         const uint8_t* __restrict__ seg_live, const int* __restrict__ carry_tid,
-                         const uint8_t* __restrict__ carry_on, T* __restrict__ ps, int T_) {
-  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (t >= T_) return;  // the whole warp
+    segsum_final_kernel(const T* __restrict__ q, const T* __restrict__ s1, const uint8_t* __restrict__ reach1,
+                        const T* __restrict__ s2, const int* __restrict__ seg_end,
+                        const uint8_t* __restrict__ seg_live, const int* __restrict__ carry_tid,
+                        const uint8_t* __restrict__ carry_on, T* __restrict__ ps, int T_) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T_) return;
   if (!seg_live[t]) {
-    if (lane == 0) ps[t] = T(0);
+    ps[t] = T(0);
     return;
   }
   const int e = seg_end[t];
-  const int b_end = e / kBlock;
-  // The chain's first block: blocks [b0, b_end) carry t into the next,
-  // and every block below b0 ends on a smaller transcript, so
-  // "carry_on[b] and carry_tid[b] >= t" is false below b0 and true from
-  // it: a binary search.
-  int lo = 0;
-  int hi = b_end;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (carry_on[mid] && carry_tid[mid] >= t) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
+  T acc = q[e];
+  const int b = e / kBlock - 1;  // the block before t's last one
+  if (b >= 0 && carry_on[b] && carry_tid[b] == t) {
+    T total = s1[b];
+    const int c = b / kBlock;
+    if (c > 0 && reach1[b]) total = s2[c - 1] + total;
+    acc = acc + total;
   }
-  if (lo == b_end) {
-    if (lane == 0) ps[t] = q[e];
-    return;
-  }
-  // The chain's carries summed pairwise, as a tree over their positions
-  // padded with zeros to a power of two.  The warp reduces 32 positions
-  // at a time (levels 0 .. 4, left + right by shuffles; missing positions
-  // are zeros, which add nothing); lane 0 keeps a binary counter of the
-  // resulting level-5 partials, then folds them from the right, the last
-  // first.
-  T part[32];
-  int level[32];
-  int top = 0;
-  for (int c0 = lo; c0 < b_end; c0 += 32) {
-    const int b = c0 + lane;
-    T x = b < b_end ? q[static_cast<long long>(b) * kBlock + kBlock - 1] : T(0);
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const T y = __shfl_down_sync(0xffffffffu, x, s);
-      if ((lane & (2 * s - 1)) == 0) x = x + y;
-    }
-    if (lane == 0) {
-      int l = 5;
-      while (top > 0 && level[top - 1] == l) {
-        x = part[--top] + x;
-        ++l;
-      }
-      part[top] = x;
-      level[top++] = l;
-    }
-  }
-  if (lane == 0) {
-    T chain = part[--top];
-    while (top > 0) chain = part[--top] + chain;
-    ps[t] = q[e] + chain;
-  }
+  ps[t] = acc;
 }
 
 template <typename T>
 int launch_segsum(const void* v, int n, const void* perm, const void* is_start, const void* seg_end,
-                  const void* seg_live, const void* carry_tid, const void* carry_on, void* scratch, void* ps,
-                  int nblk, int T_, void* stream) {
+                  const void* seg_live, const void* carry_tid, const void* carry_on, void* scratch, void* flags,
+                  void* ps, int nblk, int T_, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* q = static_cast<T*>(scratch);
+  T* s1 = q + static_cast<long long>(nblk) * kBlock;
+  T* s2 = s1 + nblk;
+  uint8_t* reach1 = static_cast<uint8_t*>(flags);
+  const int* ctid = static_cast<const int*>(carry_tid);
+  const uint8_t* con = static_cast<const uint8_t*>(carry_on);
+  const int nblk1 = (nblk + kBlock - 1) / kBlock;
+  if (nblk1 > kTopThreads * kTopPer) return static_cast<int>(cudaErrorInvalidValue);
   if (nblk > 0) {
-    segsum_scan_kernel<T><<<nblk, kBlock, 0, s>>>(static_cast<const T*>(v), n, static_cast<const int*>(perm),
-                                                  static_cast<const uint8_t*>(is_start), q);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    segsum_scan_kernel<T><<<nblk, kScanThreads, 0, s>>>(static_cast<const T*>(v), n, static_cast<const int*>(perm),
+                                                        static_cast<const uint8_t*>(is_start), q);
+  }
+  if (nblk > 1) {
+    segsum_carry_kernel<T><<<nblk1, kScanThreads, 0, s>>>(q, ctid, con, nblk, s1, reach1);
+  }
+  if (nblk1 > kBlock) {
+    segsum_top_kernel<T, kTopThreads, kTopPer><<<1, kTopThreads, 0, s>>>(s1, reach1, nblk, nblk1, s2);
+  } else if (nblk1 > 1) {  // up to 512 carry blocks (n_pad <= 2^27): the lane scan's shape
+    segsum_top_kernel<T, kScanThreads, 4><<<1, kScanThreads, 0, s>>>(s1, reach1, nblk, nblk1, s2);
   }
   if (T_ > 0) {
-    constexpr int kWarps = 8;  // transcripts a block
-    segsum_gather_kernel<T><<<(T_ + kWarps - 1) / kWarps, 32 * kWarps, 0, s>>>(
-        q, static_cast<const int*>(seg_end), static_cast<const uint8_t*>(seg_live),
-        static_cast<const int*>(carry_tid), static_cast<const uint8_t*>(carry_on), static_cast<T*>(ps), T_);
+    segsum_final_kernel<T><<<(T_ + 255) / 256, 256, 0, s>>>(q, s1, reach1, s2, static_cast<const int*>(seg_end),
+                                                            static_cast<const uint8_t*>(seg_live), ctid, con,
+                                                            static_cast<T*>(ps), T_);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -165,13 +263,15 @@ int launch_segsum(const void* v, int n, const void* perm, const void* is_start, 
 }  // namespace
 
 // v [n] values in flat lane order; the plan's arrays (nblk blocks of 512
-// lanes, T transcripts); scratch [nblk * 512] of v's type; ps [T].
-#define SEGSUM_ENTRY(name, T)                                                                                      \
-  extern "C" int name(const void* v, int n, const void* perm, const void* is_start, const void* seg_end,          \
-                      const void* seg_live, const void* carry_tid, const void* carry_on, void* scratch, void* ps, \
-                      int nblk, int T_, void* stream) {                                                            \
-    return launch_segsum<T>(v, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on, scratch, ps, nblk, T_,   \
-                            stream);                                                                               \
+// lanes, T transcripts; perm 16-byte and is_start 4-byte aligned);
+// scratch [nblk * 512 + nblk + ceil(nblk / 512)] of v's type; flags
+// [nblk] bytes; ps [T].
+#define SEGSUM_ENTRY(name, T)                                                                                   \
+  extern "C" int name(const void* v, int n, const void* perm, const void* is_start, const void* seg_end,       \
+                      const void* seg_live, const void* carry_tid, const void* carry_on, void* scratch,        \
+                      void* flags, void* ps, int nblk, int T_, void* stream) {                                  \
+    return launch_segsum<T>(v, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on, scratch, flags, ps,   \
+                            nblk, T_, stream);                                                                  \
   }
 
 SEGSUM_ENTRY(segsum_f64_launch, double)

@@ -9,17 +9,23 @@ the assignment, so the lanes are sorted by transcript ONCE
   1. gather the values into the sorted order, in blocks of BLOCK lanes;
   2. a segmented inclusive scan over each block: every run's partial sum
      lands on its last lane of the block;
-  3. ps[t] = the partial at t's last lane, plus, for a run that spans
-     block boundaries, the partials at the last lanes of the earlier
-     blocks it covers, summed pairwise in a fixed tree.
+  3. the blocks' last partials, for the runs that carry on into the next
+     block, are a segmented sequence of their own: scanned the same way,
+     BLOCK to a carry block, and the carry blocks' totals once more in one
+     block (4 a thread up to BLOCK of them, else 8: at most 8,192);
+  4. ps[t] = the partial at t's last lane, plus, when t's run carries into
+     its last block, the carry total at the block before: its carry
+     block's scan, plus the top scan at the carry block before when the
+     run reaches back past its own.
 
 Every addition combines lanes of one run, so float error stays relative
 to each transcript's own sum, as with a scatter.  Unlike the scatter's
-atomics (index_add_ on CUDA), the order of every addition is fixed: the
-scan is a Hillis-Steele tree, step d combining lane i with lane i - d for
-d = 1, 2, .., 256, and the carries a fixed pairwise tree.  So a sum is
-bit-identical from run to run, and the plain version below follows the
-same tree, so kernel and plain agree bit for bit.
+atomics (index_add_ on CUDA), the order of every addition is fixed: each
+scan is _block_scan's tree (a serial sum over each thread's elements, a
+Hillis-Steele scan of the thread totals within each warp of 32, the warp
+totals folded left to right, then a fix-up), the same on every call.  So
+a sum is bit-identical from run to run, and the plain version below
+follows the same tree, so kernel and plain agree bit for bit.
 
 The plan equals the JAX package's field for field (its six arrays, its
 block width and its stable sort); the sum agrees with the JAX
@@ -105,42 +111,88 @@ def _check(plan: SegsumPlan, flat_vals: torch.Tensor) -> None:
         raise ValueError("values and plan must be on one device")
 
 
+def _block_scan(x: torch.Tensor, starts: torch.Tensor, per: int):
+    """The kernel's block scan (csrc/segsum.cu block_scan) over each row
+    of x [nb, m] with its start flags, per elements a thread, m / per
+    threads a block (a multiple of 32): each element's inclusive
+    segmented partial from its run's start (or the row's first element),
+    and whether its run reaches back to the row's first element."""
+    nb, m = x.shape
+    threads = m // per
+    warps = threads // 32
+    x = x.view(nb, threads, per)
+    s = starts.view(nb, threads, per)
+    cols = [x[..., 0]]  # each thread's serial sum
+    for r in range(1, per):
+        cols.append(torch.where(s[..., r], x[..., r], cols[-1] + x[..., r]))
+    a = cols[-1].view(nb, warps, 32)
+    f = s.any(dim=-1).view(nb, warps, 32)
+    for d in (1, 2, 4, 8, 16):  # a warp's shuffle scan of its thread totals
+        a = torch.cat([a[..., :d], torch.where(f[..., d:], a[..., d:], a[..., :-d] + a[..., d:])], dim=-1)
+        f = torch.cat([f[..., :d], f[..., d:] | f[..., :-d]], dim=-1)
+    wa, wf = a[..., 31], f[..., 31]  # warp totals, folded left to right into each warp's carry
+    ca, cf = [torch.zeros_like(wa[:, 0]), wa[:, 0]], [torch.zeros_like(wf[:, 0]), wf[:, 0]]
+    for u in range(1, warps - 1):
+        ca.append(torch.where(wf[:, u], wa[:, u], ca[-1] + wa[:, u]))
+        cf.append(cf[-1] | wf[:, u])
+    ca, cf = torch.stack(ca[:warps], 1)[..., None], torch.stack(cf[:warps], 1)[..., None]
+    later = (torch.arange(warps, device=x.device) > 0)[:, None]
+    ea, ef = a[..., :-1], f[..., :-1]  # the warp's threads before each one
+    carry = torch.cat([ca, torch.where(~ef & later, ca + ea, ea)], dim=-1).reshape(nb, threads, 1)
+    before = torch.cat([cf, ef | cf], dim=-1).reshape(nb, threads, 1)
+    has = torch.ones((warps, 32), dtype=torch.bool, device=x.device)
+    has[0, 0] = False
+    free = torch.cumsum(s, dim=-1) == 0  # no start in the thread at or before the element
+    y = torch.where(free & has.view(1, threads, 1), carry + torch.stack(cols, dim=-1), torch.stack(cols, dim=-1))
+    return y.reshape(nb, m), (free & ~before).reshape(nb, m)
+
+
+def _scan_flat(x: torch.Tensor, starts: torch.Tensor, per: int, width: int):
+    """_block_scan over x [L] cut into blocks of width, the last padded
+    with zeros that start runs (they change no earlier element)."""
+    L = x.shape[0]
+    pad = -L % width
+    x = torch.cat([x, x.new_zeros(pad)])
+    starts = torch.cat([starts, starts.new_ones(pad)])
+    y, reach = _block_scan(x.view(-1, width), starts.view(-1, width), per)
+    return y.reshape(-1)[:L], reach.reshape(-1)[:L]
+
+
 def segsum_plain(plan: SegsumPlan, flat_vals: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of S: the kernel's own addition tree."""
+    """The plain PyTorch version of S: the kernel's own addition tree, a
+    whole-tensor step for each of its steps."""
     _check(plan, flat_vals)
     n_pad = plan.perm.shape[0]
     nblk = n_pad // BLOCK
     n = flat_vals.shape[0]
-    v = torch.cat([flat_vals, flat_vals.new_zeros(n_pad - n + 1)])  # the last slot: a zero for pad lanes
+    v = torch.cat([flat_vals, flat_vals.new_zeros(1)])  # the last slot: a zero for pad lanes
     perm = plan.perm.long()
-    q = v[torch.where(perm < n, perm, n)].view(nblk, BLOCK)
-    f = plan.is_start.clone()
-    for d in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-        left, left_f = q[:, :-d], f[:, :-d]
-        q = torch.cat([q[:, :d], torch.where(f[:, d:], q[:, d:], left + q[:, d:])], dim=1)
-        f = torch.cat([f[:, :d], f[:, d:] | left_f], dim=1)
-    qf = q.reshape(-1)
-    ps = torch.where(plan.seg_live, qf[plan.seg_end.long()], torch.zeros((), dtype=q.dtype, device=q.device))
-    # Runs across block boundaries: the last partials of the blocks a run
-    # carries out of (a chain, first block first) sum pairwise, as a tree
-    # over their positions padded with zeros to a power of two, and add to
-    # the run's own partial.
-    on = plan.carry_on
-    first = on.clone()
-    first[1:] &= ~(on[:-1] & (plan.carry_tid[:-1] == plan.carry_tid[1:]))
-    n_chains = int(first.sum())
-    if n_chains:
-        blocks = torch.nonzero(on).flatten()
-        chain = torch.cumsum(first.long(), 0)[blocks] - 1
-        pos = blocks - torch.nonzero(first).flatten()[chain]
-        width = 1 << int(pos.max()).bit_length()  # the longest chain, to a power of two
-        m = torch.zeros((n_chains, width), dtype=q.dtype, device=q.device)
-        m[chain, pos] = q[blocks, -1]
-        while m.shape[1] > 1:
-            m = m[:, 0::2] + m[:, 1::2]
-        tids = plan.carry_tid[first].long()
-        ps[tids] = ps[tids] + m[:, 0]
-    return ps
+    q, _ = _block_scan(v[torch.where(perm < n, perm, n)].view(nblk, BLOCK), plan.is_start, 4)
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    # The carries: each block's last partial where its run carries on (a
+    # zero elsewhere); a run of them starts at a block unless the block
+    # before carries the same transcript into it.
+    on, ctid = plan.carry_on, plan.carry_tid
+    cont = on.clone()
+    cont[0] = False
+    cont[1:] &= on[:-1] & (ctid[:-1] == ctid[1:])
+    s1, reach1 = _scan_flat(torch.where(on, q[:, -1], zero), ~cont, 4, BLOCK)
+    nblk1 = -(-nblk // BLOCK)
+    if nblk1 > 1:  # the carry blocks' totals in one block: 4 a thread up to BLOCK of them, else 8
+        last = torch.clamp(torch.arange(nblk1, device=q.device) * BLOCK + BLOCK - 1, max=nblk - 1)
+        per = 4 if nblk1 <= BLOCK else 8
+        s2, _ = _scan_flat(s1[last], ~reach1[last], per, -(-nblk1 // (32 * per)) * 32 * per)
+    end = plan.seg_end.long()
+    ps = q.reshape(-1)[end]
+    b = end // BLOCK - 1
+    bc = torch.clamp(b, min=0)
+    carried = (b >= 0) & on[bc] & (ctid[bc] == torch.arange(ps.shape[0], device=q.device))
+    total = s1[bc]
+    if nblk1 > 1:
+        c = bc // BLOCK
+        total = torch.where(reach1[bc] & (c > 0), s2[torch.clamp(c - 1, min=0)] + total, total)
+    ps = torch.where(carried, ps + total, ps)
+    return torch.where(plan.seg_live, ps, zero)
 
 
 def segsum_apply(plan: SegsumPlan, flat_vals: torch.Tensor) -> torch.Tensor:
@@ -157,14 +209,19 @@ def segsum_apply(plan: SegsumPlan, flat_vals: torch.Tensor) -> torch.Tensor:
     if n_pad >= 1 << 31:
         raise ValueError("segsum_apply: more lanes than the kernel's int32 index")
     vals = flat_vals.contiguous()
+    perm, is_start = plan.perm, plan.is_start
+    if perm.data_ptr() % 16 or is_start.data_ptr() % 4 or not (perm.is_contiguous() and is_start.is_contiguous()):
+        raise ValueError("segsum_apply: the plan's perm must be contiguous and 16-byte aligned, is_start 4-byte")
     T = plan.num_transcripts
+    nblk = n_pad // BLOCK
     ps = torch.empty(T, dtype=vals.dtype, device=vals.device)
-    scratch = torch.empty(n_pad, dtype=vals.dtype, device=vals.device)
+    scratch = torch.empty(n_pad + nblk + -(-nblk // BLOCK), dtype=vals.dtype, device=vals.device)
+    flags = torch.empty(nblk, dtype=torch.uint8, device=vals.device)
     name = _LAUNCH[vals.dtype]
     err = getattr(kernels.library(), name)(
-        vals.data_ptr(), vals.shape[0], plan.perm.data_ptr(), plan.is_start.data_ptr(), plan.seg_end.data_ptr(),
+        vals.data_ptr(), vals.shape[0], perm.data_ptr(), is_start.data_ptr(), plan.seg_end.data_ptr(),
         plan.seg_live.data_ptr(), plan.carry_tid.data_ptr(), plan.carry_on.data_ptr(), scratch.data_ptr(),
-        ps.data_ptr(), n_pad // BLOCK, T, torch.cuda.current_stream(vals.device).cuda_stream,
+        flags.data_ptr(), ps.data_ptr(), nblk, T, torch.cuda.current_stream(vals.device).cuda_stream,
     )
     kernels.check(err, name)
     segsum_apply.launches += 1

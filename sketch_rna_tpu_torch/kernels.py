@@ -58,10 +58,10 @@ _SIGNATURES = {
     # hashes, mask, packed, out_start, out_length, n, nb, mb, shift, stream
     "bucket_probe_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # values, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on,
-    # scratch, ps, nblk, T, stream
-    "segsum_f64_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "segsum_f32_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "segsum_i32_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # scratch, flags, ps, nblk, T, stream
+    "segsum_f64_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "segsum_f32_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "segsum_i32_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

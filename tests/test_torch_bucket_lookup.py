@@ -49,6 +49,8 @@ def _keys(case):
     rng = np.random.default_rng(zlib.crc32(case.encode()))
     if case == "clustered":  # deep buckets: many keys in a narrow range
         keys = np.unique(rng.integers(1000, 3000, size=800).astype(np.uint32))
+    elif case == "deep cluster":  # 1,000 keys under a 0xFFFFFFFF key: one bucket of 1,000 the merge cannot split
+        keys = np.concatenate([np.sort(rng.choice(2001, 1000, replace=False)), [0xFFFFFFFF]]).astype(np.uint32)
     elif case.startswith("U="):
         U = int(case[2:])
         keys = np.unique(rng.integers(0, fracminhash_threshold(0.05) + 1, size=U, dtype=np.uint64)).astype(np.uint32)
@@ -67,7 +69,7 @@ def _keys(case):
     return keys, row_ptr
 
 
-TABLE_CASES = ["U=0", "U=1", "U=1000", "U=200000", "clustered", "fraction 0.9999", "fraction 1.0"]
+TABLE_CASES = ["U=0", "U=1", "U=1000", "U=200000", "clustered", "deep cluster", "fraction 0.9999", "fraction 1.0"]
 
 
 @pytest.mark.parametrize("case", TABLE_CASES)
@@ -85,6 +87,8 @@ def test_tables_equal_jax(case):
         np.testing.assert_array_equal(dev.numpy(), want.packed)
     if case == "U=200000":
         assert 3 * got.mb <= 128  # the pair merge ran
+    if case == "deep cluster":
+        assert (got.mb, got.shift) == (1000, 22)  # the first histogram is not capped
 
 
 def test_to_device_tables_equal_jax_device_index():
@@ -105,7 +109,8 @@ def test_to_device_tables_equal_jax_device_index():
     assert dev.upload_s > 0
 
 
-@pytest.mark.parametrize("case", ["U=1000", "U=200000", "clustered", "fraction 0.9999", "fraction 1.0"])
+@pytest.mark.parametrize("case", ["U=1000", "U=200000", "clustered", "deep cluster", "fraction 0.9999",
+                                  "fraction 1.0"])
 def test_lookup_equals_jax_and_probe(case):
     keys, row_ptr = _keys(case)
     rng = np.random.default_rng(3)
@@ -113,7 +118,7 @@ def test_lookup_equals_jax_and_probe(case):
     hits = rng.choice(keys, size=(B, S))
     miss = rng.integers(0, 2**32, size=(B, S), dtype=np.uint64).astype(np.uint32)
     q = np.where(rng.random((B, S)) < 0.6, hits, miss).astype(np.uint32)
-    q[:, 0] = 0xFFFFFFFF  # the sentinel's bits: a hit only at fraction 1.0
+    q[:, 0] = 0xFFFFFFFF  # the sentinel's bits: a hit only where it is a real key
     q[:, 1] = keys[-1]
     mask = rng.random((B, S)) < 0.8
     mask[:, :2] = True
@@ -130,7 +135,7 @@ def test_lookup_equals_jax_and_probe(case):
     assert torch.equal(start, ps) and torch.equal(length, pl)
     assert int((length > 0).sum()) > B  # hits were probed
     assert not length[0].any() and bool(length[1:, 1].all())
-    assert bool(length[1:, 0].any()) == (case == "fraction 1.0")
+    assert bool(length[1:, 0].any()) == (case in ("fraction 1.0", "deep cluster"))
 
 
 def test_lookup_on_an_empty_k_finds_nothing():

@@ -29,7 +29,8 @@ from sketch_rna_tpu_torch import pipeline
 from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.em import em as port_em
 from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
-from sketch_rna_tpu_torch.em.segsum import BLOCK, build_segsum_plan, plan_from_tables, segsum_apply, segsum_plain
+from sketch_rna_tpu_torch.em.segsum import (BLOCK, _block_scan, build_segsum_plan, plan_from_tables, segsum_apply,
+                                            segsum_plain)
 
 _jax_segsum = jax.jit(jax_segsum)
 
@@ -40,12 +41,15 @@ def _tids(case, rng):
         return rng.integers(0, 300, int(case[2:])).astype(np.int32), 300
     if case == "transcripts with no lane":  # only even tids, and T past the largest
         return (2 * rng.integers(0, 200, 3000)).astype(np.int32), 450
-    # one transcript over more than three blocks, shuffled among others
-    tid = np.concatenate([np.full(4 * BLOCK + 37, 7, np.int32), rng.integers(0, 40, 900).astype(np.int32)])
+    # one transcript over more than `blocks - 1` blocks, shuffled among others
+    blocks = int(case.split()[3])
+    tid = np.concatenate([np.full(blocks * BLOCK + 37, 7, np.int32), rng.integers(0, 40, 900).astype(np.int32)])
     return rng.permutation(tid), 40
 
 
-PLAN_CASES = ["n=1", "n=511", "n=512", "n=513", "n=5000", "transcripts with no lane", "one transcript over 4 blocks"]
+# 1100 blocks: the carries span three carry blocks of 512, so the top scan runs.
+PLAN_CASES = ["n=1", "n=511", "n=512", "n=513", "n=5000", "transcripts with no lane", "one transcript over 4 blocks",
+              "one transcript over 1100 blocks"]
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
@@ -114,62 +118,106 @@ def test_segsum_plain_is_deterministic_and_checks_input():
         segsum_apply(plan, torch.zeros(plan.perm.numel() + 1, dtype=torch.float64))
 
 
-def _carry_tree(parts):
-    """The kernel's pass 2 over one chain's carries (csrc/segsum.cu): a
-    binary counter of pairwise partial sums, then the partials folded
-    from the right."""
-    stack = []
-    for x in parts:
-        level = 0
-        while stack and stack[-1][1] == level:
-            x = stack.pop()[0] + x
-            level += 1
-        stack.append((x, level))
-    acc = stack.pop()[0]
-    while stack:
-        acc = stack.pop()[0] + acc
-    return acc
+def _block_scan_emulated(x, starts, per):
+    """csrc/segsum.cu's block_scan in numpy, a block a row of x [nb, m]:
+    the kernel's registers as arrays over the block's m / per threads, a
+    shuffle up by d as a shift within each warp of 32, the warp totals
+    folded one warp at a time as each thread folds them.  Returns each
+    element's partial and whether its run reaches the block's start."""
+    nb, m = x.shape
+    threads = m // per
+    x = x.reshape(nb, threads, per).copy()
+    s = starts.reshape(nb, threads, per)
+    for r in range(1, per):  # each thread's serial sum
+        x[:, :, r] = np.where(s[:, :, r], x[:, :, r], x[:, :, r - 1] + x[:, :, r])
+    a, f = x[:, :, -1].copy(), s.any(axis=-1)
+    lane, warp = np.arange(threads) % 32, np.arange(threads) // 32
+    for d in (1, 2, 4, 8, 16):  # __shfl_up_sync(a, d): lanes below d keep their own
+        al, fl = np.roll(a, d, axis=1), np.roll(f, d, axis=1)
+        a = np.where((lane >= d) & ~f, al + a, a)
+        f = np.where(lane >= d, f | fl, f)
+    ea, ef = np.roll(a, 1, axis=1), np.roll(f, 1, axis=1)
+    ca, cf = np.zeros_like(a), np.zeros_like(f)
+    for w in range(1, threads // 32):  # thread by thread: the totals of warps 0 .. w - 1
+        c, g = a[:, 31], f[:, 31]
+        for u in range(1, w):
+            c, g = np.where(f[:, 32 * u + 31], a[:, 32 * u + 31], c + a[:, 32 * u + 31]), g | f[:, 32 * u + 31]
+        ca[:, warp == w], cf[:, warp == w] = c[:, None], g[:, None]
+    carry = np.where(lane > 0, np.where(~ef & (warp > 0), ca + ea, ea), ca)
+    before = np.where(lane > 0, ef | cf, cf)
+    has = (lane > 0) | (warp > 0)
+    free = np.cumsum(s, axis=-1) == 0
+    x = np.where(free & has[None, :, None], carry[:, :, None] + x, x)
+    return x.reshape(nb, m), (free & ~before[:, :, None]).reshape(nb, m)
 
 
-def _carry_tree_by_warp(parts):
-    """The same sum as the kernel's warp takes it: 32 positions at a time
-    reduced pairwise (zeros past the end), each chunk a level-5 partial of
-    the binary counter, then the right fold."""
-    stack = []
-    for c0 in range(0, len(parts), 32):
-        x = list(parts[c0 : c0 + 32]) + [np.float32(0)] * (32 - len(parts[c0 : c0 + 32]))
-        while len(x) > 1:
-            x = [x[i] + x[i + 1] for i in range(0, len(x), 2)]
-        x, level = x[0], 5
-        while stack and stack[-1][1] == level:
-            x = stack.pop()[0] + x
-            level += 1
-        stack.append((x, level))
-    acc = stack.pop()[0]
-    while stack:
-        acc = stack.pop()[0] + acc
-    return acc
+def _kernel_emulated(plan, vals):
+    """The kernel's four launches in numpy: the lane scan (128 threads x 4
+    a plan block), the carry scan (512 carries a block), the top scan (one
+    block: 128 x 4 up to 512 carry blocks, else 1024 x 8) and the
+    per-transcript final pass."""
+    n, T = vals.size, plan.num_transcripts
+    perm, on, ctid = plan.perm.numpy(), plan.carry_on.numpy(), plan.carry_tid.numpy()
+    nblk = perm.size // BLOCK
+    x = np.where(perm < n, vals[np.minimum(perm, n - 1)], 0).astype(vals.dtype).reshape(nblk, BLOCK)
+    q, _ = _block_scan_emulated(x, plan.is_start.numpy(), 4)
+    nblk1 = -(-nblk // BLOCK)
+    b = np.minimum(np.arange(nblk1 * BLOCK), nblk - 1)
+    live = (np.arange(nblk1 * BLOCK) < nblk) & on[b]
+    prev = np.maximum(b - 1, 0)
+    cont = live & (np.arange(nblk1 * BLOCK) > 0) & on[prev] & (ctid[prev] == ctid[b])
+    s1, reach1 = _block_scan_emulated(np.where(live, q[b, -1], 0).astype(vals.dtype).reshape(nblk1, BLOCK),
+                                      ~cont.reshape(nblk1, BLOCK), 4)
+    s1, reach1 = s1.reshape(-1), reach1.reshape(-1)
+    if nblk1 > 1:
+        width, per = (BLOCK, 4) if nblk1 <= BLOCK else (8192, 8)
+        c = np.arange(width)
+        last = np.minimum(c * BLOCK + BLOCK - 1, nblk - 1)
+        s2, _ = _block_scan_emulated(np.where(c < nblk1, s1[last], 0).astype(vals.dtype)[None],
+                                     ((c >= nblk1) | ~reach1[last])[None], per)
+        s2 = s2[0]
+    out = np.zeros(T, vals.dtype)
+    for t in range(T):
+        if not plan.seg_live[t]:
+            continue
+        e = int(plan.seg_end[t])
+        acc, blk = q.reshape(-1)[e], e // BLOCK - 1
+        if blk >= 0 and on[blk] and ctid[blk] == t:
+            total = s1[blk]
+            if blk // BLOCK > 0 and reach1[blk]:
+                total = s2[blk // BLOCK - 1] + total
+            acc = acc + total
+        out[t] = acc
+    return out
 
 
-def _scan_emulated(plan, vals):
-    """The kernel's pass 1 in numpy: each block's segmented Hillis-Steele
-    scan, step d taking lane i - d when lane i's run has no start within
-    its window."""
-    n = vals.size
-    perm = plan.perm.numpy()
-    x = np.where(perm < n, vals[np.minimum(perm, n - 1)], 0).astype(vals.dtype).reshape(-1, BLOCK)
-    f = plan.is_start.numpy().copy()
-    for d in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-        x[:, d:], f[:, d:] = np.where(f[:, d:], x[:, d:], x[:, :-d] + x[:, d:]), f[:, d:] | f[:, :-d]
-    return x.reshape(-1)
+@pytest.mark.parametrize("per, width", [(4, BLOCK), (8, 8192)])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_block_scan_follows_the_kernels_tree(per, width, dtype):
+    """segsum_plain's _block_scan at both block shapes the kernel launches
+    (128 x 4: plan blocks, carry blocks and a top scan of up to 512 carry
+    blocks; 1024 x 8: a top scan past 512, which needs n_pad > 2^27 lanes)
+    equals the numpy emulation bit for bit, with runs that cross threads
+    and warps and runs that reach back to the block's start."""
+    rng = np.random.default_rng(per)
+    x = (rng.random((3, width)) * 10.0 ** rng.integers(-6, 7, (3, width))).astype(np.float32) \
+        if dtype == "float32" else rng.integers(-1000, 1000, (3, width)).astype(np.int32)
+    starts = rng.random((3, width)) < np.array([[0.002], [0.05], [0.5]])
+    starts[0, : 40 * per] = False  # row 0's first run reaches back to its start across a warp
+    starts[1:, 0] = True
+    got, reach = _block_scan(torch.from_numpy(x), torch.from_numpy(starts), per)
+    want, want_reach = _block_scan_emulated(x, starts, per)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(reach.numpy(), want_reach)
+    assert want_reach[0].sum() >= 40 * per and not want_reach[1:].any()
 
 
-@pytest.mark.parametrize("span", [2, 3, 7, 16, 37, 75])
+@pytest.mark.parametrize("span", [2, 3, 7, 16, 37, 75, 1100])
 def test_segsum_plain_follows_the_kernels_tree(span):
     """float32 values of wildly different sizes, one transcript over span
-    blocks: segsum_plain equals, bit for bit, the scan and the carry tree
-    the kernel's two passes run (emulated here in numpy float32, the
-    carries both element by element and 32 at a time, as a warp)."""
+    blocks (1100: over three carry blocks, so the top scan runs):
+    segsum_plain equals, bit for bit, the kernel's four launches emulated
+    in numpy float32."""
     rng = np.random.default_rng(span)
     n = span * BLOCK - 100
     tid = rng.permutation(np.concatenate([np.zeros(50, np.int32), np.full(n - 100, 3, np.int32),
@@ -177,18 +225,8 @@ def test_segsum_plain_follows_the_kernels_tree(span):
     vals = (rng.random(n) * 10.0 ** rng.integers(-6, 7, n)).astype(np.float32)
     plan = build_segsum_plan(torch.from_numpy(tid), 9)
     got = segsum_plain(plan, torch.from_numpy(vals)).numpy()
-    q = _scan_emulated(plan, vals)
+    np.testing.assert_array_equal(got, _kernel_emulated(plan, vals))
     on, ctid = plan.carry_on.numpy(), plan.carry_tid.numpy()
-    for t in range(9):
-        if not plan.seg_live[t]:
-            assert got[t] == 0
-            continue
-        end = int(plan.seg_end[t])
-        chain = [b for b in range(end // BLOCK) if on[b] and ctid[b] == t]
-        carries = [q[b * BLOCK + BLOCK - 1] for b in chain]
-        want = q[end] if not chain else q[end] + _carry_tree(carries)
-        assert got[t] == want, t
-        assert not chain or _carry_tree_by_warp(carries) == _carry_tree(carries)
     assert sum(1 for b in range(on.size) if on[b] and ctid[b] == 3) >= span - 2
 
 
