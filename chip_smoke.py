@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels   # a subset (device and build always run)
     python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's shared functions timed beside these
     python3 chip_smoke.py --phases shared-shapes         # only the shared functions' times, as JSON
+    python3 chip_smoke.py --phases merge     # the merge kernel alone: checks, times, each route by width
 
 Phases, in order; any failure raises and the script exits nonzero
 without printing its result line:
@@ -12,25 +13,41 @@ without printing its result line:
   device        torch / CUDA versions, the card's name and power limit;
   build         nvcc builds the kernels in csrc/, one process per source;
   kernels       K1 (fused sketch), K2 (multi-k fused sketch), K3 (kept
-                windows), K4 (row sort, int32), K4-int64 and the merge
-                kernel against their plain PyTorch versions on the card,
-                bit for bit, over the edges of their domains (K1 / K2 at
-                104, 152 and 1028 bases, fractions 0.05 and 0.9999, caps
-                that overflow; K3 at [8192, 2048] and [8191, 2001] at an
-                offset and one 4-megabase index-build row, also at an odd
-                offset, fractions 0.05 and 0.9999; K4 at every width 2 ..
-                16384 and 8192, 8191 or 1 rows; the merge at row widths 2
-                .. 65536, row_sort_wide and an int32 sort_event_parts);
-                then each kernel's device time at its main-path shape
-                beside its plain version's, torch.sort's for K4 and the
-                merge, and its bound, and K4 against torch.sort at every
-                width; then the functions both trees share (K3's call,
-                sketch_reads of 2 kb and 20 kb reads, row_sort_wide, P
+                windows), K4 (row sort, int32) and K4-int64 against their
+                plain PyTorch versions on the card, bit for bit, over the
+                edges of their domains (K1 / K2 at 104, 152 and 1028
+                bases, fractions 0.05 and 0.9999, caps that overflow; K3
+                at [8192, 2048] and [8191, 2001] at an offset and one
+                4-megabase index-build row, also at an odd offset,
+                fractions 0.05 and 0.9999; K4 at every width 2 .. 16384
+                and 8192, 8191 or 1 rows); then each kernel's device time
+                at its main-path shape beside its plain version's,
+                torch.sort's for K4, and its bound, and K4 against
+                torch.sort at every width; then the functions both trees
+                share (K3's call, sketch_reads of 2 kb and 20 kb reads,
+                row_sort_wide, the merge at its four main-path shapes, P
                 on the first c3 batch, S on the c3 EM's lanes), with
                 --parent also in DIR.  Device time is torch.profiler's, per
                 kernel launch or per whole call, over 50 calls whose inputs
                 rotate through copies past the L2 cache, timed in turns
                 plain, kernel, kernel, plain; the host is left out;
+  merge         the merge kernel against bitonic_merge_pair, bit for bit,
+                at every row width 2 .. 65536, int32 and int64, one row,
+                B rows and B - 1 from an odd address, over random rows,
+                runs of {0, 1, 2}, the type's extremes, all-equal rows,
+                runs wholly below and wholly above each other and parts
+                padded with the type's maximum; both routes (the register
+                merge at every width it takes, the partition launch + the
+                staged merge path at every width); the partition launch
+                against merge_partition_plain; the four main-path shapes
+                ([8192, 256], [16384, 256], [8192, 512] int32 of the
+                sharded route, [8192, 32768] int64 of row_sort_wide),
+                row_sort_wide and an int32 sort_event_parts against
+                torch.sort.  Then the device time per call over all its
+                launches at the four shapes, beside the plain version,
+                torch.sort and the bound, each launch's time by name, and
+                each route's time per call at widths 64 .. 65536 (the
+                register merge's cut);
   probe-segsum  P (bucket probe) against its plain version and the
                 searchsorted probe on the first c3 batch's sketches
                 ([8192, 32] per k), [8191, 160] rows from an offset,
@@ -132,6 +149,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import math
@@ -160,11 +178,16 @@ L2_BYTES = 50 * 2**20
 # peaks leaves out.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-PHASES = ("kernels", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads",
+PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads",
           "stream", "sharded", "stream-c3", "cli-stream", "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
 RANK_JOIN_S = 420  # a world of rank processes is killed after this long
+# The merge kernel's main-path shapes: (rows, row width, key type, where).
+MERGE_SHAPES = ((BATCH, 256, "int32", "the sharded route's round, ip = 1"),
+                (2 * BATCH, 256, "int32", "the sharded route's first round, ip = 2"),
+                (BATCH, 512, "int32", "the sharded route's second round, ip = 2"),
+                (BATCH, 1 << 15, "int64", "row_sort_wide's round"))
 KERNELS = {
     "K1": ("fused_sketch", "sketch_rna_tpu_torch/csrc/sketch.cu", "sketch_rna_tpu/hash/pallas_hash.py:160"),
     "K2": ("fused_sketch_multik", "sketch_rna_tpu_torch/csrc/sketch.cu", "sketch_rna_tpu/hash/pallas_hash.py:266"),
@@ -259,8 +282,11 @@ def device_ms(torch, fn, arg_sets, kernel=None, reps=None):
     require((reps + 1) // 2 <= len(best) <= reps,
             f"{len(best)} {'launches of ' + kernel if kernel else 'whole calls'} traced in {reps} calls")
     if kernel is not None:
-        return sum(e.time_range.elapsed_us() for e in best) / len(best) / 1e3
-    return sum(e.time_range.elapsed_us() for run in best for e in run) / len(best) / 1e3
+        ms = sum(e.time_range.elapsed_us() for e in best) / len(best) / 1e3
+    else:
+        ms = sum(e.time_range.elapsed_us() for run in best for e in run) / len(best) / 1e3
+    require(ms > 0, f"no device time traced for {kernel or 'a call'}")
+    return ms
 
 
 def in_turns(torch, kernel_fn, plain_fn, arg_sets, kernel, reps=None):
@@ -295,7 +321,9 @@ def launch_split_ms(torch, fn, arg_sets, prefix, reps=None):
         if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name:
             times[re.search(rf"{prefix}\w*", e.name).group(0)].append(e.time_range.elapsed_us())
     require(bool(times), f"no {prefix} kernel traced")
-    return {name: (sum(us) / len(us) / 1e3, len(us)) for name, us in times.items()}
+    split = {name: (sum(us) / len(us) / 1e3, len(us)) for name, us in times.items()}
+    require(all(ms > 0 for ms, _ in split.values()), f"a {prefix} kernel traced no device time: {split}")
+    return split
 
 
 def bound(nbytes: int, ops: int):
@@ -372,12 +400,15 @@ def counters():
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
     from sketch_rna_tpu_torch.em.segsum import segsum_apply
     from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
-    from sketch_rna_tpu_torch.match.row_sort import merge_pairs, row_sort
+    from sketch_rna_tpu_torch.match import row_sort
 
-    return {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
-            "K3": (nthash_sketch, "launches"), "K4": (row_sort, "launches"),
-            "K4-int64": (row_sort, "launches_i64"), "merge": (merge_pairs, "launches"),
-            "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches")}
+    found = {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
+             "K3": (nthash_sketch, "launches"), "K4": (row_sort.row_sort, "launches"),
+             "K4-int64": (row_sort.row_sort, "launches_i64"), "merge": (row_sort.merge_pairs, "launches"),
+             "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches")}
+    if hasattr(row_sort, "merge_partition"):  # a parent checkout (--parent) may predate it
+        found["merge-partition"] = (row_sort.merge_partition, "launches")
+    return found
 
 
 def reset_launches() -> None:
@@ -463,14 +494,13 @@ def main_shape_cases(torch):
     (kernel callable, plain callable, kernel-name substring or None for
     the whole call, argument copies, (bytes, operations), shape).  K1 and
     K4 run on the single-k path, K2, K4 and K4-int64 on the multi-k one
-    (PERF.md §6), K3 on long reads, the merge on every batch of the
-    sharded route ("merge-wide": its round inside row_sort_wide)."""
+    (PERF.md §6), K3 on long reads (the merge: phase_merge)."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
-    from sketch_rna_tpu_torch.match.row_sort import bitonic_merge_pair, merge_pairs, row_sort, row_sort_plain
+    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
     from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept, sketch_all_k, sketch_batch
 
     rng = np.random.default_rng(SEED)
@@ -495,13 +525,6 @@ def main_shape_cases(torch):
         x = _keys(torch, gen, BATCH, 256, dtype)
         cases[name] = (row_sort, row_sort_plain, "row_sort_kernel", (x,),
                        sort_work(BATCH, 256, x.element_size()), f"[{BATCH}, 256] {str(dtype)[6:]}")
-    # The merge: the sharded route's round over a c3 batch's two 128-lane
-    # parts (every batch, PERF.md §6), and row_sort_wide's round.
-    for name, w, dtype, what in (("merge", 128, torch.int32, "the sharded route's round on c3"),
-                                 ("merge-wide", 1 << 14, torch.int64, "row_sort_wide's round")):
-        x = _halves(torch, _keys(torch, gen, BATCH, 2 * w, dtype), w)
-        cases[name] = (merge_pairs, lambda x, w=w: bitonic_merge_pair(x[:, :w], x[:, w:]), "merge_kernel", (x,),
-                       merge_work(BATCH, 2 * w, x.element_size()), f"[{BATCH}, {2 * w}] {str(dtype)[6:]} ({what})")
     return {name: (fn, plain, kern, rotation(args, sum(a.numel() * a.element_size() for a in args)), work, shape)
             for name, (fn, plain, kern, args, work, shape) in cases.items()}
 
@@ -517,7 +540,7 @@ def shared_cases(torch, ctx):
     from sketch_rna_tpu_torch.em.segsum import plan_from_tables, segsum_apply
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
-    from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
+    from sketch_rna_tpu_torch.match.row_sort import merge_pairs, row_sort_wide
     from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 
     rng = np.random.default_rng(SEED + 5)
@@ -534,6 +557,11 @@ def shared_cases(torch, ctx):
                                                  REPS if L == 2000 else 5)
     x = _keys(torch, gen, BATCH, 1 << 15, torch.int64)
     cases[f"row_sort_wide [{BATCH}, {1 << 15}] int64"] = (row_sort_wide, [(x,)], 5)
+    for B, W, dtype_name, _ in MERGE_SHAPES:  # per call, whatever launches either tree makes
+        x = _halves(torch, _keys(torch, gen, B, W, getattr(torch, dtype_name)), W // 2)
+        nbytes = 2 * x.numel() * x.element_size()
+        cases[f"merge [{B}, {W}] {dtype_name}"] = (merge_pairs, rotation((x,), nbytes // 2),
+                                                   REPS if nbytes < 2**28 else 10)
     t = c3_problem(torch, ctx)["index"].per_k[31].bucket
     h, m = c3_probe_batch(torch, ctx)[31]
     cases[f"bucket_lookup k=31 [{BATCH}, {h.shape[1]}]"] = (
@@ -590,9 +618,7 @@ def phase_kernels(torch, results, ctx, parent=None):
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik, window_pad
-    from sketch_rna_tpu_torch.match.row_sort import (bitonic_merge_pair, merge_pairs, row_sort, row_sort_plain,
-                                                     row_sort_wide)
-    from sketch_rna_tpu_torch.match.rowmatch import I32_MAX, sort_event_parts
+    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
     from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept, sketch_all_k, sketch_batch
 
     rng = np.random.default_rng(SEED)
@@ -681,44 +707,6 @@ def phase_kernels(torch, results, ctx, parent=None):
             record(results, name, max_abs_err=0)
             del x, rows, got
         print(f"[kernels] {name} [B, W], B in (8192, 8191, 8191 at an offset, 1), W = 2 .. 16384: bit-equal")
-    # The merge kernel against bitonic_merge_pair at every row width 2 ..
-    # 65536 (one row, B rows, B - 1 rows from an odd address; B shrinks
-    # past 8192 lanes); row_sort_wide and sort_event_parts against torch.sort.
-    for dtype in (torch.int32, torch.int64):
-        for W in (1 << e for e in range(1, 17)):
-            B = BATCH if W <= 1 << 13 else (1 << 26) // W
-            x = _halves(torch, _keys(torch, gen, B, W, dtype), W // 2)
-            for rows in (x, x[:1], _odd_offset(torch, x[1:])):
-                got = merge_pairs(rows)
-                require(torch.equal(got, bitonic_merge_pair(rows[:, : W // 2], rows[:, W // 2 :])),
-                        f"merge_pairs differs from bitonic_merge_pair at [{rows.shape[0]}, {W}] {dtype}")
-            del x, rows, got
-        print(f"[kernels] merge {str(dtype)[6:]} [B, W], W = 2 .. 65536, one row, B rows and B - 1 from an odd "
-              "address: bit-equal")
-    record(results, "merge", max_abs_err=0)
-    for widths in ((512, 300), (256, 130, 256)):
-        parts = [_keys(torch, gen, BATCH, w, torch.int32) for w in widths]
-        span = (1 << (len(widths) - 1).bit_length()) * max(widths)
-        fill = torch.full((BATCH, span - sum(widths)), I32_MAX, dtype=torch.int32, device=DEVICE)
-        got = sort_event_parts(parts)
-        require(torch.equal(got, row_sort_plain(torch.cat(parts + [fill], dim=1))),
-                f"sort_event_parts differs from torch.sort at part widths {widths}")
-        print(f"[kernels] sort_event_parts int32 [{BATCH}] x part widths {widths} -> [{BATCH}, {span}]: "
-              "equal to torch.sort")
-    del parts, fill, got
-    wide = {}
-    for B, W in ((BATCH, 1 << 15), (1024, 1 << 16)):
-        x = _keys(torch, gen, B, W, torch.int64)
-        got, want = row_sort_wide(x), row_sort_plain(x)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"row_sort_wide differs from torch.sort at [{B}, {W}]")
-        del got, want
-        ms, sort_ms = in_turns(torch, row_sort_wide, row_sort_plain, [(x,)], None, reps=5)
-        wide[f"[{B}, {W}] int64"] = {"ms": ms, "torch_sort_ms": sort_ms}
-        print(f"[kernels] row_sort_wide int64 [{B}, {W}]: bit-equal; device ms per call: {ms:.4f} (K4-int64 chunks "
-              f"+ {int(math.log2(W >> 14))} merge launches), torch.sort {sort_ms:.4f}")
-        del x
-    record(results, "merge", row_sort_wide=wide)
 
     # Device time per launch (torch.profiler; inputs cold in L2).
     print(f"[kernels] device ms per call, torch.profiler over {REPS} calls, plain / kernel / kernel / plain")
@@ -744,15 +732,10 @@ def phase_kernels(torch, results, ctx, parent=None):
         library_ms = None
         if name.startswith("K4"):
             library_ms = plain_ms
-        elif name.startswith("merge"):
-            library_ms = device_ms(torch, row_sort_plain, arg_sets, reps=reps)
         timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
                      bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, library_ms=library_ms, shape=shape,
                      timed="per call" if kern is None else "per launch")
-        if name == "merge-wide":
-            record(results, "merge", wide_round=timed)
-        else:
-            record(results, name, **timed)
+        record(results, name, **timed)
         print(f"[kernels] {name} {shape}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
               + (f"torch.sort {library_ms:.5f} ms, " if library_ms is not None else "")
               + f"bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
@@ -769,7 +752,7 @@ def phase_kernels(torch, results, ctx, parent=None):
     p1 = parent_times(torch, parent) if parent else None
     mine = shared_times(torch, ctx)
     p2 = parent_times(torch, parent) if parent else None
-    owners = {"row_sort_wide": "merge", "bucket_lookup": "P", "segsum_apply": "S"}
+    owners = {"row_sort_wide": "merge", "merge": "merge", "bucket_lookup": "P", "segsum_apply": "S"}
     for name, ms in mine.items():
         owner = results[owners.get(name.split()[0], "K3")]
         owner.setdefault("shared_ms", {})[name] = ms
@@ -780,6 +763,171 @@ def phase_kernels(torch, results, ctx, parent=None):
         elif parent:
             line += f"; the parent ({parent.name}) does not time it"
         print(line)
+
+
+def _merge_rows(torch, gen, B, W, dtype):
+    """[B, W] merge inputs (two ascending W/2-key runs a row) made on the
+    card from gen: _keys' rows, and from B = 64 on, in four sixteenths of
+    the rows past the middle: all-equal rows; runs with a wholly below b;
+    a wholly above b; parts of a few small keys padded with the type's
+    maximum, as the sharded route's event parts are."""
+    x = _keys(torch, gen, B, W, dtype)
+    w, n, s = W // 2, B // 16, B // 2
+    if B >= 64:
+        x[s : s + n] = 7
+        lo = torch.randint(-(2**20), 0, (n, w), generator=gen, device=DEVICE, dtype=torch.int64).to(dtype)
+        hi = torch.randint(0, 2**20, (n, w), generator=gen, device=DEVICE, dtype=torch.int64).to(dtype)
+        x[s + n : s + 2 * n, :w], x[s + n : s + 2 * n, w:] = lo, hi
+        x[s + 2 * n : s + 3 * n, :w], x[s + 2 * n : s + 3 * n, w:] = hi, lo
+        del lo, hi
+        keys = torch.randint(0, 64, (n, 2, w), generator=gen, device=DEVICE, dtype=torch.int64).to(dtype)
+        count = torch.randint(0, w + 1, (n, 2, 1), generator=gen, device=DEVICE)
+        lane = torch.arange(w, device=DEVICE)
+        x[s + 3 * n : s + 4 * n] = torch.where(lane < count, keys, torch.iinfo(dtype).max).view(n, W)
+        del keys
+    return _halves(torch, x, w)
+
+
+@contextlib.contextmanager
+def _merge_route(torch, dtype, route):
+    """Send merge_pairs' rows of `dtype` down one route: "register" (the
+    register merge, up to the widest row it takes) or "tiles" (the
+    partition launch and the staged merge path at every width)."""
+    from sketch_rna_tpu_torch import kernels
+    from sketch_rna_tpu_torch.match import row_sort
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    saved = row_sort.REGISTER_MERGE_MAX_WIDTH[dtype]
+    row_sort.REGISTER_MERGE_MAX_WIDTH[dtype] = (
+        kernels.library().merge_register_max_width(itemsize) if route == "register" else 0)
+    try:
+        yield
+    finally:
+        row_sort.REGISTER_MERGE_MAX_WIDTH[dtype] = saved
+
+
+def phase_merge(torch, results):
+    """The merge kernel against bitonic_merge_pair, bit for bit, on both
+    routes; row_sort_wide and sort_event_parts against torch.sort; then
+    device times per call (all launches) and per launch at the main-path
+    shapes, and each route's time by width."""
+    from sketch_rna_tpu_torch import kernels
+    from sketch_rna_tpu_torch.match.row_sort import (REGISTER_MERGE_MAX_WIDTH, bitonic_merge_pair, merge_pairs,
+                                                     merge_partition, merge_partition_plain, merge_tile,
+                                                     row_sort_plain, row_sort_wide)
+    from sketch_rna_tpu_torch.match.rowmatch import I32_MAX, sort_event_parts
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    lib = kernels.library()
+
+    def plain(x):
+        w = x.shape[1] // 2
+        return bitonic_merge_pair(x[:, :w], x[:, w:])
+
+    # Every row width 2 .. 65536 (one row, B rows, B - 1 rows from an odd
+    # address; B shrinks past 8192 lanes), each route that takes it.
+    for dtype in (torch.int32, torch.int64):
+        reg_max = lib.merge_register_max_width(torch.empty((), dtype=dtype).element_size())
+        tile = merge_tile(dtype)
+        for W in (1 << e for e in range(1, 17)):
+            B = BATCH if W <= 1 << 13 else (1 << 26) // W
+            x = _merge_rows(torch, gen, B, W, dtype)
+            for rows in (x, x[:1], _odd_offset(torch, x[1:])):
+                want = plain(rows)
+                for route in ("register", "tiles") if W <= reg_max else ("tiles",):
+                    with _merge_route(torch, dtype, route):
+                        got = merge_pairs(rows)
+                    require(torch.equal(got, want), f"merge_pairs ({route}) differs from bitonic_merge_pair at "
+                                                    f"[{rows.shape[0]}, {W}] {dtype}")
+                for t in (tile, 7, 1) if W <= 4096 else (tile, 7):
+                    require(torch.equal(merge_partition(rows, t), merge_partition_plain(rows, t)),
+                            f"merge_partition differs from merge_partition_plain at [{rows.shape[0]}, {W}] {dtype} "
+                            f"tile {t}")
+            del x, rows, got, want
+        print(f"[merge] {str(dtype)[6:]} [B, W], W = 2 .. 65536, one row, B rows and B - 1 from an odd address, "
+              f"random, {{0, 1, 2}}, extremes, all-equal, disjoint both ways, sentinel-padded: the register merge "
+              f"(up to {reg_max} lanes) and the staged path (every width) bit-equal to bitonic_merge_pair; the "
+              f"partition launch at tiles {tile}, 7 and 1 (W <= 4096) equal to merge_partition_plain")
+    record(results, "merge", max_abs_err=0)
+    for B, W, dtype_name, what in MERGE_SHAPES:
+        x = _merge_rows(torch, gen, B, W, getattr(torch, dtype_name))
+        require(torch.equal(merge_pairs(x), plain(x)),
+                f"merge_pairs differs from bitonic_merge_pair at [{B}, {W}] {dtype_name} ({what})")
+        del x
+    print("[merge] the main-path shapes " + ", ".join(f"[{B}, {W}] {t}" for B, W, t, _ in MERGE_SHAPES)
+          + ": bit-equal")
+    for widths in ((512, 300), (256, 130, 256)):
+        parts = [_keys(torch, gen, BATCH, w, torch.int32) for w in widths]
+        span = (1 << (len(widths) - 1).bit_length()) * max(widths)
+        fill = torch.full((BATCH, span - sum(widths)), I32_MAX, dtype=torch.int32, device=DEVICE)
+        got = sort_event_parts(parts)
+        require(torch.equal(got, row_sort_plain(torch.cat(parts + [fill], dim=1))),
+                f"sort_event_parts differs from torch.sort at part widths {widths}")
+        print(f"[merge] sort_event_parts int32 [{BATCH}] x part widths {widths} -> [{BATCH}, {span}]: "
+              "equal to torch.sort")
+    del parts, fill, got
+    wide = {}
+    for B, W in ((BATCH, 1 << 15), (1024, 1 << 16)):
+        x = _keys(torch, gen, B, W, torch.int64)
+        got, want = row_sort_wide(x), row_sort_plain(x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"row_sort_wide differs from torch.sort at [{B}, {W}]")
+        del got, want
+        ms, sort_ms = in_turns(torch, row_sort_wide, row_sort_plain, [(x,)], None, reps=5)
+        wide[f"[{B}, {W}] int64"] = {"ms": ms, "torch_sort_ms": sort_ms}
+        print(f"[merge] row_sort_wide int64 [{B}, {W}]: bit-equal; device ms per call: {ms:.4f} (K4-int64 chunks "
+              f"+ {int(math.log2(W >> 14))} merges), torch.sort {sort_ms:.4f}")
+        del x
+    record(results, "merge", row_sort_wide=wide)
+
+    # Device time per call, all launches (torch.profiler; inputs cold in L2).
+    print(f"[merge] device ms per call (every launch of a call), torch.profiler over {REPS} calls (10 past 256 MB), "
+          "plain / kernel / kernel / plain; then per launch, by kernel")
+    shapes = {}
+    for B, W, dtype_name, what in MERGE_SHAPES:
+        x = _merge_rows(torch, gen, B, W, getattr(torch, dtype_name))
+        nbytes, ops = merge_work(B, W, x.element_size())
+        arg_sets = rotation((x,), nbytes // 2)
+        reps = REPS if nbytes < 2**28 else 10
+        ms, plain_ms = in_turns(torch, merge_pairs, plain, arg_sets, None, reps)
+        split = launch_split_ms(torch, merge_pairs, arg_sets, "merge_", reps)
+        sort_ms = device_ms(torch, row_sort_plain, arg_sets, reps=reps)
+        b_ms, by = bound(nbytes, ops)
+        shapes[f"[{B}, {W}] {dtype_name}"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=sort_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+            bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, what=what,
+            launch_ms={name: t for name, (t, _) in split.items()})
+        print(f"[merge] [{B}, {W}] {dtype_name} ({what}): kernel {ms * 1e3:.2f} us a call (launches "
+              + ", ".join(f"{name} {t * 1e3:.2f} us, {n} traced in {reps} calls" for name, (t, n) in split.items())
+              + f"), plain {plain_ms * 1e3:.2f} us, torch.sort {sort_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
+              f"({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
+        del x, arg_sets
+    main = shapes[f"[{BATCH}, 256] int32"]
+    record(results, "merge", **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                     "bound_us", "bound_share", "bound_bytes", "bound_ops")},
+           shape=f"[{BATCH}, 256] int32 ({main['what']})", timed="per call (all launches)", shapes=shapes)
+
+    # Each route's time per call by width, 2^21 keys a call: the register
+    # merge's cut (REGISTER_MERGE_MAX_WIDTH).
+    by_width = {}
+    for dtype in (torch.int32, torch.int64):
+        reg_max = lib.merge_register_max_width(torch.empty((), dtype=dtype).element_size())
+        for W in (1 << e for e in range(6, 17)):
+            B = (1 << 21) // W
+            x = _merge_rows(torch, gen, B, W, dtype)
+            nbytes, ops = merge_work(B, W, x.element_size())
+            arg_sets = rotation((x,), nbytes // 2)
+            row = {"bound_ms": bound(nbytes, ops)[0],
+                   "route": "register" if W <= REGISTER_MERGE_MAX_WIDTH[dtype] else "tiles"}
+            for route in ("register", "tiles") if W <= reg_max else ("tiles",):
+                with _merge_route(torch, dtype, route):
+                    row[f"{route}_ms"] = device_ms(torch, merge_pairs, arg_sets)
+            by_width[f"[{B}, {W}] {str(dtype)[6:]}"] = row
+            print(f"[merge] by width [{B}, {W}] {str(dtype)[6:]}: "
+                  + ", ".join(f"{r} {row[f'{r}_ms'] * 1e3:.2f} us" for r in ("register", "tiles") if f"{r}_ms" in row)
+                  + f" a call, bound {row['bound_ms'] * 1e3:.3f} us; merge_pairs takes {row['route']}")
+            del x, arg_sets
+    record(results, "merge", by_width=by_width)
 
 
 def c3_em_table(torch, ctx):
@@ -1730,7 +1878,7 @@ def phase_sharded(torch, results, ctx, smi):
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["merge"] >= batches,
             f"the sharded route skipped a kernel or a batch's merge: {launches}")
     require(launches["P"] == 0, f"the sharded route probed through the bucket table: {launches}")
-    record(results, "merge", launches=launches["merge"])
+    record(results, "merge", launches=launches["merge"], partition_launches=launches["merge-partition"])
     c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
     n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
     caps = tuple(config.sketch_capacity_for(k, 104) for k in config.kmer_lengths)
@@ -1825,7 +1973,7 @@ def phase_sharded(torch, results, ctx, smi):
                     require(torch.equal(merge_pairs(x), plain(x)),
                             f"merge_pairs differs from bitonic_merge_pair at [{rows}, {width}] {dtype_name}")
                     arg_sets = rotation((x,), nbytes // 2)
-                    ms, plain_ms = in_turns(torch, merge_pairs, plain, arg_sets, "merge_kernel")
+                    ms, plain_ms = in_turns(torch, merge_pairs, plain, arg_sets, None)
                     sort_ms = device_ms(torch, row_sort_plain, arg_sets)  # the yardstick: torch.sort of the rows
                     b_ms, by = bound(nbytes, ops)
                     timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=sort_ms, bound_ms=b_ms, bound_by=by)
@@ -2144,6 +2292,7 @@ def main() -> int:
     ctx = {}  # data that several phases share (the c3 index and reads)
     runs = {
         "kernels": lambda: phase_kernels(torch, results, ctx, args.parent.resolve() if args.parent else None),
+        "merge": lambda: phase_merge(torch, results),
         "probe-segsum": lambda: phase_probe_segsum(torch, results, ctx),
         "sample": phase_sample,
         "sample-multik": phase_sample_multik,

@@ -11,19 +11,29 @@ the port's PackedReads / Packed2Reads / FastaRecords:
                                              background thread
   load_fasta_native(path)                    -> FastaRecords
 
-The library builds on first use with `make -C native` into
-native/libfastio.so.  A failed build logs a warning and leaves
+The library builds on first use from native/fastio.cpp, with the flags
+of native/Makefile and the compiler $CXX names (g++ by default), into
+BUILD_DIR (build/native/ beside the package), never into native/: the
+JAX package's loader rebuilds native/libfastio.so in place there.  The
+build compiles to a temporary name and renames it into place, under an
+exclusive lock on a file beside it, so first uses in several threads or
+processes at once build it once and never load a partial file.  A failed
+compile (no compiler, no zlib headers) logs a warning once and leaves
 native_available() False; callers then take the Python parsers of
-io/fasta.py and io/fastq.py, which stay the semantic reference.
+io/fasta.py and io/fastq.py, which stay the semantic reference.  A
+library that compiled but does not load is built again and loaded once
+more; a failed load is never cached.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+import fcntl
 import logging
 import os
+import shlex
 import subprocess
+import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -36,8 +46,9 @@ from sketch_rna_tpu_torch.io.packing import Packed2Reads, PackedReads
 
 log = logging.getLogger(__name__)
 
-NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-SO_PATH = NATIVE_DIR / "libfastio.so"
+NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "fastio.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread")  # native/Makefile's
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -62,36 +73,71 @@ _SIGNATURES = {
 }
 
 _load_lock = threading.Lock()
+_libs: dict = {}  # library path -> its loaded, bound CDLL
+_compile_failed: dict = {}  # library path -> why its compile failed
 
 
-@functools.lru_cache(maxsize=None)
-def _load_once() -> Optional[ctypes.CDLL]:
-    if not SO_PATH.exists():
-        if not (NATIVE_DIR / "fastio.cpp").exists():
-            return None
-        try:
-            subprocess.run(["make", "-C", str(NATIVE_DIR)], check=True, capture_output=True, timeout=300)
-        except (OSError, subprocess.SubprocessError) as e:  # no compiler, no zlib headers, ...
-            detail = getattr(e, "stderr", b"") or b""
-            log.warning("native fastio build failed (%s%s); using the Python parsers", e,
-                        ": " + detail.decode(errors="replace").strip()[-300:] if detail else "")
-            return None
+def so_path() -> Path:
+    """Where the library builds: BUILD_DIR/libfastio.so."""
+    return BUILD_DIR / "libfastio.so"
+
+
+def _build(so: Path, again: bool) -> Optional[str]:
+    """Compile NATIVE_SRC into `so` unless a library at least as new as
+    the source is there (or always, with `again`); None on success, else
+    why the build failed.  Holds an exclusive lock on a file beside `so`,
+    and renames the finished library into place."""
+    if not NATIVE_SRC.exists():
+        return f"{NATIVE_SRC} is missing"
     try:
-        lib = ctypes.CDLL(str(SO_PATH))
-    except OSError as e:
-        log.warning("native fastio load failed (%s); using the Python parsers", e)
-        return None
-    for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    return lib
+        so.parent.mkdir(parents=True, exist_ok=True)
+        with open(so.parent / f"{so.name}.lock", "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not again and so.exists() and so.stat().st_mtime >= NATIVE_SRC.stat().st_mtime:
+                return None
+            fd, tmp = tempfile.mkstemp(dir=so.parent, prefix=f".{so.stem}.", suffix=".so")
+            os.close(fd)
+            try:
+                cxx = shlex.split(os.environ.get("CXX") or "g++")
+                cmd = [*cxx, *CXXFLAGS, "-shared", "-o", tmp, str(NATIVE_SRC), "-lz"]
+                subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+    except (OSError, subprocess.SubprocessError) as e:  # no compiler, no zlib headers, no write access
+        detail = (getattr(e, "stderr", b"") or b"").decode(errors="replace").strip()[-300:]
+        return f"{e}{': ' + detail if detail else ''}"
+    return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
     """The library, built on first use; None when it cannot be built."""
-    with _load_lock:  # one build, whichever thread asks first
-        return _load_once()
+    so = so_path()
+    with _load_lock:  # one build per process, whichever thread asks first
+        if so in _libs:
+            return _libs[so]
+        if so in _compile_failed:
+            return None
+        for again in (False, True):
+            why = _build(so, again)
+            if why is not None:
+                log.warning("native fastio build failed (%s); using the Python parsers", why)
+                _compile_failed[so] = why
+                return None
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError as e:
+                if again:
+                    log.warning("native fastio load failed (%s); using the Python parsers", e)
+                    return None
+                continue  # not whole: build it again under the lock
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _libs[so] = lib
+            return lib
 
 
 def _require() -> ctypes.CDLL:

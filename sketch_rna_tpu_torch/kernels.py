@@ -53,8 +53,17 @@ _SIGNATURES = {
     "row_sort_launch": [_P, _P, _I, _I, _P],
     "row_sort_i64_launch": [_P, _P, _I, _I, _P],
     # x, out, N, W (= 2w), stream
-    "merge_pairs_launch": [_P, _P, _I, _I, _P],
-    "merge_pairs_i64_launch": [_P, _P, _I, _I, _P],
+    "merge_register_launch": [_P, _P, _I, _I, _P],
+    "merge_register_i64_launch": [_P, _P, _I, _I, _P],
+    # x, splits, N, W, tile, stream
+    "merge_partition_launch": [_P, _P, _I, _I, _I, _P],
+    "merge_partition_i64_launch": [_P, _P, _I, _I, _I, _P],
+    # x, out, splits, N, W, stream
+    "merge_tiles_launch": [_P, _P, _P, _I, _I, _P],
+    "merge_tiles_i64_launch": [_P, _P, _P, _I, _I, _P],
+    # itemsize -> outputs a tile, widest register-merge row
+    "merge_tile_outputs": [_I],
+    "merge_register_max_width": [_I],
     # hashes, mask, packed, out_start, out_length, n, nb, mb, shift, stream
     "bucket_probe_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # values, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on,

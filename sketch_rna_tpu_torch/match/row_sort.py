@@ -8,11 +8,14 @@ is the key+payload sort: a (key << 32) | payload row sorts exactly as
 (key, payload) when both halves fit in 32 bits.
 
 `merge_pairs` merges the two ascending halves of every row of a [N, 2w]
-tensor: on a CUDA tensor the hand-written merge-path kernel
-(csrc/merge.cu), on a CPU tensor its plain version, `bitonic_merge_pair`.
-`merge_sorted_runs` merges a row's sorted w-lane runs by rounds of it, and
-`row_sort_wide` sorts rows of any power-of-two width: one K4 launch over
-the 16384-lane chunks, then one merge launch per doubling.
+tensor: on a CUDA tensor the hand-written merge kernel (csrc/merge.cu:
+a bitonic merge in registers for rows up to REGISTER_MERGE_MAX_WIDTH
+lanes; past that `merge_partition`'s launch, which finds every tile's
+split of the two runs, then a staged merge path over the tiles), on a
+CPU tensor its plain version, `bitonic_merge_pair`.  `merge_sorted_runs`
+merges a row's sorted w-lane runs by rounds of it, and `row_sort_wide`
+sorts rows of any power-of-two width: one K4 launch over the 16384-lane
+chunks, then one merge per doubling.
 """
 
 from __future__ import annotations
@@ -25,7 +28,13 @@ MIN_WIDTH = 2
 MAX_WIDTH = 1 << 14  # 64 KB of shared memory per int32 row, 128 KB per int64 row
 
 _LAUNCH = {torch.int32: "row_sort_launch", torch.int64: "row_sort_i64_launch"}
-_MERGE = {torch.int32: "merge_pairs_launch", torch.int64: "merge_pairs_i64_launch"}
+_MERGE_REGISTER = {torch.int32: "merge_register_launch", torch.int64: "merge_register_i64_launch"}
+_MERGE_PARTITION = {torch.int32: "merge_partition_launch", torch.int64: "merge_partition_i64_launch"}
+_MERGE_TILES = {torch.int32: "merge_tiles_launch", torch.int64: "merge_tiles_i64_launch"}
+# Rows up to this many lanes merge in registers; wider rows take the
+# partition launch and the staged merge path.  Set by measurement on an
+# H100 (PERF.md §6); at most csrc/merge.cu's merge_register_max_width.
+REGISTER_MERGE_MAX_WIDTH = {torch.int32: 1024, torch.int64: 1024}
 
 
 def row_sort_plain(x: torch.Tensor) -> torch.Tensor:
@@ -85,30 +94,80 @@ def bitonic_merge_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def merge_pairs(x: torch.Tensor) -> torch.Tensor:
-    """Merge the two ascending halves of every row of x ([N, 2w] int32 or
-    int64, 2w a power of two >= 2) into one ascending row."""
-    if x.dtype not in _MERGE:
-        raise TypeError(f"merge_pairs takes int32 or int64, got {x.dtype}")
+def _check_merge_input(x: torch.Tensor, name: str) -> None:
+    if x.dtype not in _MERGE_REGISTER:
+        raise TypeError(f"{name} takes int32 or int64, got {x.dtype}")
     if x.dim() != 2:
-        raise ValueError(f"merge_pairs takes [N, 2w], got {tuple(x.shape)}")
+        raise ValueError(f"{name} takes [N, 2w], got {tuple(x.shape)}")
     N, W = x.shape
     if W < 2 or W & (W - 1):
         raise ValueError(f"row width {W} is not a power of two >= 2")
     if N * W >= 1 << 40 or N >= 1 << 31:
         raise ValueError(f"[{N}, {W}] exceeds the kernel's index range")
     if not x.is_contiguous():
-        raise ValueError("merge_pairs takes a contiguous tensor")
+        raise ValueError(f"{name} takes a contiguous tensor")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def merge_tile(dtype: torch.dtype) -> int:
+    """Outputs one block of the staged merge path merges at a time."""
+    return kernels.library().merge_tile_outputs(torch.empty((), dtype=dtype).element_size())
+
+
+def merge_partition_plain(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """The plain version of the partition launch: for every row of x
+    ([N, 2w], two ascending runs a and b) and every tile boundary
+    d = min(k * tile, 2w), k = 0 .. ceil(2w / tile), the number of a-keys
+    among the first d outputs of the row's merge, ties from a.
+    [N, ceil(2w / tile) + 1] int32."""
+    N, W = x.shape
+    w = W // 2
+    a, b = x[:, :w].contiguous(), x[:, w:].contiguous()
+    # a[i]'s output position: i plus the b-keys strictly below it.
+    pos = torch.arange(w, device=x.device) + torch.searchsorted(b, a, side="left")
+    d = (torch.arange(-(-W // tile) + 1, device=x.device) * tile).clamp(max=W)
+    return torch.searchsorted(pos, d.expand(N, -1).contiguous(), side="left").to(torch.int32)
+
+
+def merge_partition(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """merge_partition_plain's splits of x ([N, 2w] int32 or int64, two
+    ascending runs a row): on a CUDA tensor one kernel launch, a thread
+    a boundary; on a CPU tensor the plain version."""
+    _check_merge_input(x, "merge_partition")
+    if not 1 <= tile < 1 << 31:
+        raise ValueError(f"tile {tile} is not in [1, 2^31)")
+    if x.device.type == "cpu":
+        return merge_partition_plain(x, tile)
+    N, W = x.shape
+    splits = torch.empty((N, -(-W // tile) + 1), dtype=torch.int32, device=x.device)
+    if N:
+        name = _MERGE_PARTITION[x.dtype]
+        err = getattr(kernels.library(), name)(
+            x.data_ptr(), splits.data_ptr(), N, W, tile, torch.cuda.current_stream(x.device).cuda_stream
+        )
+        kernels.check(err, name)
+        merge_partition.launches += 1
+    return splits
+
+
+def merge_pairs(x: torch.Tensor) -> torch.Tensor:
+    """Merge the two ascending halves of every row of x ([N, 2w] int32 or
+    int64, 2w a power of two >= 2) into one ascending row."""
+    _check_merge_input(x, "merge_pairs")
+    N, W = x.shape
     if x.device.type == "cpu":
         return bitonic_merge_pair(x[:, : W // 2], x[:, W // 2 :])
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     out = torch.empty_like(x)
     if N:
-        name = _MERGE[x.dtype]
-        err = getattr(kernels.library(), name)(
-            x.data_ptr(), out.data_ptr(), N, W, torch.cuda.current_stream(x.device).cuda_stream
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if W <= REGISTER_MERGE_MAX_WIDTH[x.dtype]:
+            name = _MERGE_REGISTER[x.dtype]
+            err = getattr(kernels.library(), name)(x.data_ptr(), out.data_ptr(), N, W, stream)
+        else:
+            splits = merge_partition(x, merge_tile(x.dtype))
+            name = _MERGE_TILES[x.dtype]
+            err = getattr(kernels.library(), name)(x.data_ptr(), out.data_ptr(), splits.data_ptr(), N, W, stream)
         kernels.check(err, name)
         merge_pairs.launches += 1
     return out
@@ -143,4 +202,5 @@ def row_sort_wide(x: torch.Tensor) -> torch.Tensor:
 # Kernel launches since the last reset, per kernel and key type.
 row_sort.launches = 0
 row_sort.launches_i64 = 0
-merge_pairs.launches = 0
+merge_pairs.launches = 0  # calls that launched the merge (one or two launches each)
+merge_partition.launches = 0

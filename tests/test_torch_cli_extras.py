@@ -82,7 +82,7 @@ def files(tmp_path_factory):
 def test_cli_streamed_route_equals_jax_cli(files, tmp_path, monkeypatch, capsys, feed):
     tmp, _, idx, fqs, _, _ = files
     if feed != "python" and not native.native_available():
-        pytest.skip("native fastio library did not build (make -C native failed)")
+        pytest.skip(f"native fastio library did not build ({native.so_path()})")
     monkeypatch.setattr(port_pipeline, "FUSED_MAX_PADDED_READS", 0)
     monkeypatch.setattr(jax_pipeline, "FUSED_MAX_PADDED_READS", 0)
     monkeypatch.setenv("SKETCH_TPU_STREAM_MIN_BYTES", "0" if feed == "native-lazy" else str(2 << 30))

@@ -51,7 +51,7 @@ def test_default_em_is_float64_and_byte_identical(tmp_path):
 @pytest.mark.parametrize("stepped", [False, True])
 def test_lazy_scan_feed_close_after_iter(stepped):
     if not native.native_available():
-        pytest.skip("native fastio library did not build (make -C native failed)")
+        pytest.skip(f"native fastio library did not build ({native.so_path()})")
     feed = native.LazyScanFeed(os.path.join(EXAMPLES, "sample.fq"), 31, 64)
     it = iter(feed)
     if stepped:

@@ -1,12 +1,20 @@
 """The port's binding of native/fastio.cpp against the JAX package's.
 
-Both bind the same library; on the same plain and gzip FASTQ / FASTA
-files every array, id and count must be equal, and equal to the port's
-Python parsers.  The tests skip, with the reason, only when the library
-cannot be built on this machine.
+Both bind the same library: the fixture points the JAX binding at the
+port's build of it (the same source and flags), so a JAX build that
+another process is rewriting in place cannot fail the comparison.  On
+the same plain and gzip FASTQ / FASTA files every array, id and count
+must be equal, and equal to the port's Python parsers.  The tests skip,
+with the reason, only when the library cannot be built on this machine.
 """
 
 import gzip
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,11 +26,19 @@ from sketch_rna_tpu_torch.io.fastq import load_fastq_dict
 from sketch_rna_tpu_torch.io.packing import pack_reads, unpack_codes2
 
 
+ROOT = Path(__file__).resolve().parents[1]
+
+
 @pytest.fixture(scope="module")
 def lib():
     if not native.native_available():
-        pytest.skip(f"native fastio library did not build ({native.SO_PATH}); make -C native failed")
-    assert jax_native.native_available()
+        pytest.skip(f"native fastio library did not build ({native.so_path()})")
+    with pytest.MonkeyPatch.context() as mp:  # the JAX binding loads the port's whole build
+        mp.setattr(jax_native, "_SO_PATH", str(native.so_path()))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_failed", False)
+        assert jax_native.native_available()
+        yield
 
 
 def _fastq(tmp_path, rng, n=700, gz=False):
@@ -108,3 +124,39 @@ def test_missing_file_raises(lib):
         native.NativeFastqScan("/nonexistent/x.fq", 31)
     with pytest.raises(FileNotFoundError):
         native.load_fasta_native("/nonexistent/x.fa")
+
+
+# One process of test_concurrent_first_builds_all_load: wait for the go
+# file, build into the given directory, parse the sample FASTQ, print a
+# digest of the arrays.
+_FIRST_BUILD = """
+import hashlib, os, sys, time
+from pathlib import Path
+from sketch_rna_tpu_torch.io import native
+native.BUILD_DIR = Path(sys.argv[1])
+while not os.path.exists(sys.argv[2]):
+    time.sleep(0.005)
+ok = native.native_available()
+reads, stats = native.pack_fastq_native(sys.argv[3], min_len=31, with_ids=True)
+h = hashlib.sha256(reads.codes.tobytes() + reads.lengths.tobytes() + "\\n".join(reads.ids).encode())
+print(ok, reads.codes.shape, sorted(stats.items()), h.hexdigest())
+"""
+
+
+def test_concurrent_first_builds_all_load(tmp_path):
+    """Six processes build the library at once into a directory that
+    holds none: each loads a whole library and parses the sample alike."""
+    if shutil.which((os.environ.get("CXX") or "g++").split()[0]) is None:
+        pytest.skip("no C++ compiler")
+    build, go = tmp_path / "native", tmp_path / "go"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    args = [str(build), str(go), str(ROOT / "examples" / "sample.fq")]
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_BUILD, *args], cwd=tmp_path, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for _ in range(6)]
+    time.sleep(1.0)  # every process waits at the go file
+    go.touch()
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 6, [err[-800:] for _, err in outs]
+    lines = [out.strip().splitlines()[-1] for out, _ in outs]
+    assert lines[0].startswith("True ") and len(set(lines)) == 1, lines
+    assert sorted(p.name for p in build.iterdir()) == ["libfastio.so", "libfastio.so.lock"]
