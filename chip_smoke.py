@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases kernels   # a subset (device and build always run)
     python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's shared functions timed beside these
     python3 chip_smoke.py --phases shared-shapes         # only the shared functions' times, as JSON
-    python3 chip_smoke.py --phases merge     # the merge kernel alone: checks, times, each route by width
+    python3 chip_smoke.py --phases merge     # the merge kernel alone: its checks and times
 
 Phases, in order; any failure raises and the script exits nonzero
 without printing its result line:
@@ -29,25 +29,26 @@ without printing its result line:
                 on the first c3 batch, S on the c3 EM's lanes), with
                 --parent also in DIR.  Device time is torch.profiler's, per
                 kernel launch or per whole call, over 50 calls whose inputs
-                rotate through copies past the L2 cache, timed in turns
+                rotate through copies past the L2 cache (and outputs
+                through as many buffers, each held until its turn comes
+                round, so no output stays in the L2), timed in turns
                 plain, kernel, kernel, plain; the host is left out;
   merge         the merge kernel against bitonic_merge_pair, bit for bit,
                 at every row width 2 .. 65536, int32 and int64, one row,
                 B rows and B - 1 from an odd address, over random rows,
                 runs of {0, 1, 2}, the type's extremes, all-equal rows,
                 runs wholly below and wholly above each other and parts
-                padded with the type's maximum; both routes (the register
-                merge at every width it takes, the partition launch + the
-                staged merge path at every width); the partition launch
+                padded with the type's maximum; both routes (merge_pairs:
+                the register merge up to 1024 lanes, merge_staged past
+                that; merge_staged, the partition launch + the staged
+                merge path, at every width); the partition launch
                 against merge_partition_plain; the four main-path shapes
                 ([8192, 256], [16384, 256], [8192, 512] int32 of the
                 sharded route, [8192, 32768] int64 of row_sort_wide),
                 row_sort_wide and an int32 sort_event_parts against
                 torch.sort.  Then the device time per call over all its
                 launches at the four shapes, beside the plain version,
-                torch.sort and the bound, each launch's time by name, and
-                each route's time per call at widths 64 .. 65536 (the
-                register merge's cut);
+                torch.sort and the bound, and each launch's time by name;
   probe-segsum  P (bucket probe) against its plain version and the
                 searchsorted probe on the first c3 batch's sketches
                 ([8192, 32] per k), [8191, 160] rows from an offset,
@@ -149,7 +150,6 @@ Imports no JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import csv
 import json
 import math
@@ -240,6 +240,18 @@ def whole_calls(events):
     return [r for r in runs if len(r) == n]
 
 
+def _warm_up(torch, fn, arg_sets):
+    """One call on each argument set and one more: the outputs a timed
+    loop holds (one a set, see device_ms), with the caching allocator
+    holding the spare block the loop's next output takes, so no trace
+    allocates device memory."""
+    held = [None] * len(arg_sets)
+    for r in range(len(arg_sets) + 1):
+        held[r % len(arg_sets)] = fn(*arg_sets[r % len(arg_sets)])
+    torch.cuda.synchronize()
+    return held
+
+
 def device_ms(torch, fn, arg_sets, kernel=None, reps=None):
     """Mean device time of one call of fn(*args), in ms: torch.profiler
     over `reps` calls after a warm-up, cycling through arg_sets.  With
@@ -248,24 +260,27 @@ def device_ms(torch, fn, arg_sets, kernel=None, reps=None):
     holds whole (whole_calls), of the sum of each call's device
     operations.  The host's share of a call is left out.
 
-    A trace on the card can lose some of its device records (3 of 50,
-    now and then, in one run).  So a trace is taken again until it holds
-    every launch or every call whole, at most four times, keeping the
-    fullest, which must hold half of them."""
+    Each call's output is held until its input comes round again, so
+    the outputs too cycle through as many buffers as arg_sets: a call
+    writes to memory the L2 no longer holds, and its write-back falls
+    inside the timed calls, as on the main path.
+
+    A trace on the card can lose some of its device records (1 to 3 of
+    50 in most traces, all of them in some).  So a trace is taken again
+    until one holds nine tenths of the launches or whole calls, at most
+    eight times, keeping the fullest, which must hold half of them."""
     from torch.profiler import ProfilerActivity, profile
 
     if reps is None:
         reps = REPS
-    for a in arg_sets[:3]:
-        fn(*a)
-    torch.cuda.synchronize()
+    held = _warm_up(torch, fn, arg_sets)
     best, counts = [], []
-    for _ in range(4):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for r in range(reps):
                 if kernel is None:
                     torch.cuda._sleep(0)
-                fn(*arg_sets[r % len(arg_sets)])
+                held[r % len(arg_sets)] = fn(*arg_sets[r % len(arg_sets)])
             if kernel is None:
                 torch.cuda._sleep(0)
             torch.cuda.synchronize()
@@ -274,8 +289,9 @@ def device_ms(torch, fn, arg_sets, kernel=None, reps=None):
         counts.append(len(mine))
         if len(mine) > len(best):
             best = mine
-        if len(mine) == reps:
+        if len(best) >= reps - reps // 10:
             break
+    del held
     if len(set(counts)) > 1:
         print(f"[kernels] traces of {kernel or 'a call'} held {counts} {'launches' if kernel else 'whole calls'} "
               f"of {reps}; the fullest is used")
@@ -302,20 +318,20 @@ def launch_split_ms(torch, fn, arg_sets, prefix, reps=None):
     """Mean device ms per launch of each kernel whose name holds `prefix`
     in calls of fn(*args) (torch.profiler, as device_ms; a kernel is
     named by the identifier before its template or argument list), and
-    how many launches of each the trace held."""
+    how many launches of each the trace held.  Outputs are held as in
+    device_ms."""
     import re
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
 
     reps = reps or REPS
-    for a in arg_sets[:3]:
-        fn(*a)
-    torch.cuda.synchronize()
+    held = _warm_up(torch, fn, arg_sets)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for r in range(reps):
-            fn(*arg_sets[r % len(arg_sets)])
+            held[r % len(arg_sets)] = fn(*arg_sets[r % len(arg_sets)])
         torch.cuda.synchronize()
+    del held
     times = defaultdict(list)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name:
@@ -788,56 +804,35 @@ def _merge_rows(torch, gen, B, W, dtype):
     return _halves(torch, x, w)
 
 
-@contextlib.contextmanager
-def _merge_route(torch, dtype, route):
-    """Send merge_pairs' rows of `dtype` down one route: "register" (the
-    register merge, up to the widest row it takes) or "tiles" (the
-    partition launch and the staged merge path at every width)."""
-    from sketch_rna_tpu_torch import kernels
-    from sketch_rna_tpu_torch.match import row_sort
-
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    saved = row_sort.REGISTER_MERGE_MAX_WIDTH[dtype]
-    row_sort.REGISTER_MERGE_MAX_WIDTH[dtype] = (
-        kernels.library().merge_register_max_width(itemsize) if route == "register" else 0)
-    try:
-        yield
-    finally:
-        row_sort.REGISTER_MERGE_MAX_WIDTH[dtype] = saved
-
-
 def phase_merge(torch, results):
     """The merge kernel against bitonic_merge_pair, bit for bit, on both
     routes; row_sort_wide and sort_event_parts against torch.sort; then
     device times per call (all launches) and per launch at the main-path
-    shapes, and each route's time by width."""
-    from sketch_rna_tpu_torch import kernels
+    shapes."""
     from sketch_rna_tpu_torch.match.row_sort import (REGISTER_MERGE_MAX_WIDTH, bitonic_merge_pair, merge_pairs,
-                                                     merge_partition, merge_partition_plain, merge_tile,
-                                                     row_sort_plain, row_sort_wide)
+                                                     merge_partition, merge_partition_plain, merge_staged,
+                                                     merge_tile, row_sort_plain, row_sort_wide)
     from sketch_rna_tpu_torch.match.rowmatch import I32_MAX, sort_event_parts
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    lib = kernels.library()
 
     def plain(x):
         w = x.shape[1] // 2
         return bitonic_merge_pair(x[:, :w], x[:, w:])
 
     # Every row width 2 .. 65536 (one row, B rows, B - 1 rows from an odd
-    # address; B shrinks past 8192 lanes), each route that takes it.
+    # address; B shrinks past 8192 lanes): merge_pairs, and below its cut
+    # also the staged route that it takes past the cut.
     for dtype in (torch.int32, torch.int64):
-        reg_max = lib.merge_register_max_width(torch.empty((), dtype=dtype).element_size())
         tile = merge_tile(dtype)
         for W in (1 << e for e in range(1, 17)):
             B = BATCH if W <= 1 << 13 else (1 << 26) // W
             x = _merge_rows(torch, gen, B, W, dtype)
             for rows in (x, x[:1], _odd_offset(torch, x[1:])):
                 want = plain(rows)
-                for route in ("register", "tiles") if W <= reg_max else ("tiles",):
-                    with _merge_route(torch, dtype, route):
-                        got = merge_pairs(rows)
-                    require(torch.equal(got, want), f"merge_pairs ({route}) differs from bitonic_merge_pair at "
+                for fn in (merge_pairs, merge_staged) if W <= REGISTER_MERGE_MAX_WIDTH else (merge_pairs,):
+                    got = fn(rows)
+                    require(torch.equal(got, want), f"{fn.__name__} differs from bitonic_merge_pair at "
                                                     f"[{rows.shape[0]}, {W}] {dtype}")
                 for t in (tile, 7, 1) if W <= 4096 else (tile, 7):
                     require(torch.equal(merge_partition(rows, t), merge_partition_plain(rows, t)),
@@ -846,7 +841,8 @@ def phase_merge(torch, results):
             del x, rows, got, want
         print(f"[merge] {str(dtype)[6:]} [B, W], W = 2 .. 65536, one row, B rows and B - 1 from an odd address, "
               f"random, {{0, 1, 2}}, extremes, all-equal, disjoint both ways, sentinel-padded: the register merge "
-              f"(up to {reg_max} lanes) and the staged path (every width) bit-equal to bitonic_merge_pair; the "
+              f"(up to {REGISTER_MERGE_MAX_WIDTH} lanes) and the staged path (every width) bit-equal to "
+              f"bitonic_merge_pair; the "
               f"partition launch at tiles {tile}, 7 and 1 (W <= 4096) equal to merge_partition_plain")
     record(results, "merge", max_abs_err=0)
     for B, W, dtype_name, what in MERGE_SHAPES:
@@ -906,28 +902,6 @@ def phase_merge(torch, results):
     record(results, "merge", **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                      "bound_us", "bound_share", "bound_bytes", "bound_ops")},
            shape=f"[{BATCH}, 256] int32 ({main['what']})", timed="per call (all launches)", shapes=shapes)
-
-    # Each route's time per call by width, 2^21 keys a call: the register
-    # merge's cut (REGISTER_MERGE_MAX_WIDTH).
-    by_width = {}
-    for dtype in (torch.int32, torch.int64):
-        reg_max = lib.merge_register_max_width(torch.empty((), dtype=dtype).element_size())
-        for W in (1 << e for e in range(6, 17)):
-            B = (1 << 21) // W
-            x = _merge_rows(torch, gen, B, W, dtype)
-            nbytes, ops = merge_work(B, W, x.element_size())
-            arg_sets = rotation((x,), nbytes // 2)
-            row = {"bound_ms": bound(nbytes, ops)[0],
-                   "route": "register" if W <= REGISTER_MERGE_MAX_WIDTH[dtype] else "tiles"}
-            for route in ("register", "tiles") if W <= reg_max else ("tiles",):
-                with _merge_route(torch, dtype, route):
-                    row[f"{route}_ms"] = device_ms(torch, merge_pairs, arg_sets)
-            by_width[f"[{B}, {W}] {str(dtype)[6:]}"] = row
-            print(f"[merge] by width [{B}, {W}] {str(dtype)[6:]}: "
-                  + ", ".join(f"{r} {row[f'{r}_ms'] * 1e3:.2f} us" for r in ("register", "tiles") if f"{r}_ms" in row)
-                  + f" a call, bound {row['bound_ms'] * 1e3:.3f} us; merge_pairs takes {row['route']}")
-            del x, arg_sets
-    record(results, "merge", by_width=by_width)
 
 
 def c3_em_table(torch, ctx):

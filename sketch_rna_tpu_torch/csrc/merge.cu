@@ -26,12 +26,13 @@
 // any key was staged, about 15 dependent loads at the head of every
 // block with the memory pipe idle.
 //
-// Design now, one regime a width: the wrapper sends rows up to
-// REGISTER_MERGE_MAX_WIDTH lanes (1024, match/row_sort.py; measured on
-// an H100, PERF.md section 6) to the first, wider rows to the second.
+// Design now, one regime a width: rows up to kRegisterMaxWidth = 1024
+// lanes take the first, wider rows the second (the wrapper's
+// REGISTER_MERGE_MAX_WIDTH, match/row_sort.py).  At 2048 int32 lanes the
+// register merge, 64 keys a lane, measured slower than the staged path
+// on an H100 (PERF.md section 6), so neither key type goes past 1024.
 //
-// Narrow rows (the kernel takes up to 2048 int32 or 1024 int64 lanes): a
-// bitonic merge in registers, with no shared memory, no search and no
+// Narrow rows: a bitonic merge in registers, with no shared memory, no search and no
 // barrier.  G lanes own a row (a warp when the row holds 32 vectors or
 // more), E = W / G keys a lane, in K4's warp-striped layout: key j of
 // lane l sits at row offset (j / V) * G * V + l * V + j % V, V keys a
@@ -228,17 +229,13 @@ cudaError_t register_merge(const T* x, T* out, int N, int W, bool vec, cudaStrea
   return cudaGetLastError();
 }
 
-// The widest row the register merge takes: 64 int32 or 32 int64 keys a
-// lane (64 registers of keys).
-template <typename T>
-__host__ __device__ constexpr int register_max_width() {
-  return sizeof(T) == 4 ? 2048 : 1024;
-}
+// The widest row the register merge takes: 32 keys a lane.
+constexpr int kRegisterMaxWidth = 1024;
 
 template <typename T>
 int launch_register(const void* x, void* out, int N, int W, void* stream) {
   constexpr int V = 16 / sizeof(T);
-  if (W < 2 || W > register_max_width<T>() || (W & (W - 1))) return static_cast<int>(cudaErrorInvalidValue);
+  if (W < 2 || W > kRegisterMaxWidth || (W & (W - 1))) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   const T* xs = static_cast<const T*>(x);
   T* ys = static_cast<T*>(out);
@@ -251,9 +248,6 @@ int launch_register(const void* x, void* out, int N, int W, void* stream) {
     case 8: e = register_merge<T, 8>(xs, ys, N, W, vec, st); break;
     case 16: e = register_merge<T, 16>(xs, ys, N, W, vec, st); break;
     case 32: e = register_merge<T, 32>(xs, ys, N, W, vec, st); break;
-    case 64:
-      if constexpr (sizeof(T) == 4) e = register_merge<T, 64>(xs, ys, N, W, vec, st);
-      break;
     default: break;
   }
   return static_cast<int>(e);
@@ -514,9 +508,8 @@ int launch_tiles(const void* x, void* out, const void* splits, int N, int W, voi
 
 }  // namespace
 
-// x, out: [N, W] keys, W = 2w a power of two from 2 to
-// merge_register_max_width; each row of x holds two ascending runs of w
-// keys.
+// x, out: [N, W] keys, W = 2w a power of two from 2 to kRegisterMaxWidth;
+// each row of x holds two ascending runs of w keys.
 extern "C" int merge_register_launch(const void* x, void* out, int N, int W, void* stream) {
   return launch_register<int32_t>(x, out, N, W, stream);
 }
@@ -547,8 +540,4 @@ extern "C" int merge_tiles_i64_launch(const void* x, void* out, const void* spli
 // The tile of merge_tiles (outputs a block merges at a time), by key size.
 extern "C" int merge_tile_outputs(int itemsize) {
   return itemsize == 8 ? tile_outputs<long long>() : tile_outputs<int32_t>();
-}
-
-extern "C" int merge_register_max_width(int itemsize) {
-  return itemsize == 8 ? register_max_width<long long>() : register_max_width<int32_t>();
 }

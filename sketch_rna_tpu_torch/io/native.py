@@ -22,7 +22,8 @@ compile (no compiler, no zlib headers) logs a warning once and leaves
 native_available() False; callers then take the Python parsers of
 io/fasta.py and io/fastq.py, which stay the semantic reference.  A
 library that compiled but does not load is built again and loaded once
-more; a failed load is never cached.
+more; only when the fresh build does not load either is that cached, as
+a failed compile is.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ _SIGNATURES = {
 
 _load_lock = threading.Lock()
 _libs: dict = {}  # library path -> its loaded, bound CDLL
-_compile_failed: dict = {}  # library path -> why its compile failed
+_compile_failed: dict = {}  # library path -> why it failed to compile, or to load when fresh
 
 
 def so_path() -> Path:
@@ -128,8 +129,9 @@ def _load() -> Optional[ctypes.CDLL]:
             try:
                 lib = ctypes.CDLL(str(so))
             except OSError as e:
-                if again:
+                if again:  # freshly built and still unloadable: lasting, as a failed compile
                     log.warning("native fastio load failed (%s); using the Python parsers", e)
+                    _compile_failed[so] = f"load failed after a rebuild: {e}"
                     return None
                 continue  # not whole: build it again under the lock
             for name, (restype, argtypes) in _SIGNATURES.items():

@@ -61,9 +61,8 @@ _SIGNATURES = {
     # x, out, splits, N, W, stream
     "merge_tiles_launch": [_P, _P, _P, _I, _I, _P],
     "merge_tiles_i64_launch": [_P, _P, _P, _I, _I, _P],
-    # itemsize -> outputs a tile, widest register-merge row
+    # itemsize -> outputs a tile
     "merge_tile_outputs": [_I],
-    "merge_register_max_width": [_I],
     # hashes, mask, packed, out_start, out_length, n, nb, mb, shift, stream
     "bucket_probe_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # values, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on,

@@ -10,9 +10,9 @@ is the key+payload sort: a (key << 32) | payload row sorts exactly as
 `merge_pairs` merges the two ascending halves of every row of a [N, 2w]
 tensor: on a CUDA tensor the hand-written merge kernel (csrc/merge.cu:
 a bitonic merge in registers for rows up to REGISTER_MERGE_MAX_WIDTH
-lanes; past that `merge_partition`'s launch, which finds every tile's
-split of the two runs, then a staged merge path over the tiles), on a
-CPU tensor its plain version, `bitonic_merge_pair`.  `merge_sorted_runs`
+lanes; past that `merge_staged`: `merge_partition`'s launch, which finds
+every tile's split of the two runs, then a staged merge path over the
+tiles), on a CPU tensor its plain version, `bitonic_merge_pair`.  `merge_sorted_runs`
 merges a row's sorted w-lane runs by rounds of it, and `row_sort_wide`
 sorts rows of any power-of-two width: one K4 launch over the 16384-lane
 chunks, then one merge per doubling.
@@ -31,10 +31,10 @@ _LAUNCH = {torch.int32: "row_sort_launch", torch.int64: "row_sort_i64_launch"}
 _MERGE_REGISTER = {torch.int32: "merge_register_launch", torch.int64: "merge_register_i64_launch"}
 _MERGE_PARTITION = {torch.int32: "merge_partition_launch", torch.int64: "merge_partition_i64_launch"}
 _MERGE_TILES = {torch.int32: "merge_tiles_launch", torch.int64: "merge_tiles_i64_launch"}
-# Rows up to this many lanes merge in registers; wider rows take the
-# partition launch and the staged merge path.  Set by measurement on an
-# H100 (PERF.md §6); at most csrc/merge.cu's merge_register_max_width.
-REGISTER_MERGE_MAX_WIDTH = {torch.int32: 1024, torch.int64: 1024}
+# Rows up to this many lanes merge in registers (csrc/merge.cu's
+# kRegisterMaxWidth, the widest row that kernel takes); wider rows take
+# merge_staged.
+REGISTER_MERGE_MAX_WIDTH = 1024
 
 
 def row_sort_plain(x: torch.Tensor) -> torch.Tensor:
@@ -151,6 +151,25 @@ def merge_partition(x: torch.Tensor, tile: int) -> torch.Tensor:
     return splits
 
 
+def merge_staged(x: torch.Tensor) -> torch.Tensor:
+    """merge_pairs' route for rows wider than REGISTER_MERGE_MAX_WIDTH,
+    at any width: on a CUDA tensor the partition launch, then the staged
+    merge path over its tiles; on a CPU tensor bitonic_merge_pair."""
+    _check_merge_input(x, "merge_staged")
+    N, W = x.shape
+    if x.device.type == "cpu":
+        return bitonic_merge_pair(x[:, : W // 2], x[:, W // 2 :])
+    out = torch.empty_like(x)
+    if N:
+        splits = merge_partition(x, merge_tile(x.dtype))
+        name = _MERGE_TILES[x.dtype]
+        err = getattr(kernels.library(), name)(
+            x.data_ptr(), out.data_ptr(), splits.data_ptr(), N, W, torch.cuda.current_stream(x.device).cuda_stream
+        )
+        kernels.check(err, name)
+    return out
+
+
 def merge_pairs(x: torch.Tensor) -> torch.Tensor:
     """Merge the two ascending halves of every row of x ([N, 2w] int32 or
     int64, 2w a power of two >= 2) into one ascending row."""
@@ -158,17 +177,17 @@ def merge_pairs(x: torch.Tensor) -> torch.Tensor:
     N, W = x.shape
     if x.device.type == "cpu":
         return bitonic_merge_pair(x[:, : W // 2], x[:, W // 2 :])
-    out = torch.empty_like(x)
-    if N:
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if W <= REGISTER_MERGE_MAX_WIDTH[x.dtype]:
+    if W > REGISTER_MERGE_MAX_WIDTH:
+        out = merge_staged(x)
+    else:
+        out = torch.empty_like(x)
+        if N:
             name = _MERGE_REGISTER[x.dtype]
-            err = getattr(kernels.library(), name)(x.data_ptr(), out.data_ptr(), N, W, stream)
-        else:
-            splits = merge_partition(x, merge_tile(x.dtype))
-            name = _MERGE_TILES[x.dtype]
-            err = getattr(kernels.library(), name)(x.data_ptr(), out.data_ptr(), splits.data_ptr(), N, W, stream)
-        kernels.check(err, name)
+            err = getattr(kernels.library(), name)(
+                x.data_ptr(), out.data_ptr(), N, W, torch.cuda.current_stream(x.device).cuda_stream
+            )
+            kernels.check(err, name)
+    if N:
         merge_pairs.launches += 1
     return out
 

@@ -17,7 +17,7 @@ import torch
 
 from sketch_rna_tpu.match.rowmatch import _bitonic_merge_pair
 from sketch_rna_tpu_torch.match.row_sort import (bitonic_merge_pair, merge_pairs, merge_partition,
-                                                 merge_partition_plain)
+                                                 merge_partition_plain, merge_staged)
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -52,9 +52,10 @@ def test_bitonic_merge_pair_equals_jax(w):
     got = bitonic_merge_pair(t[:, :w], t[:, w:])
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, np.sort(x, axis=1))
-    before = merge_pairs.launches
+    before = merge_pairs.launches, merge_partition.launches
     np.testing.assert_array_equal(merge_pairs(t).numpy(), want)
-    assert merge_pairs.launches == before  # a CPU tensor launches no kernel
+    np.testing.assert_array_equal(merge_staged(t).numpy(), want)
+    assert (merge_pairs.launches, merge_partition.launches) == before  # a CPU tensor launches no kernel
 
 
 def _splits_numpy(x, tile):

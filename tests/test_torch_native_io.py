@@ -126,14 +126,16 @@ def test_missing_file_raises(lib):
         native.load_fasta_native("/nonexistent/x.fa")
 
 
-# One process of test_concurrent_first_builds_all_load: wait for the go
-# file, build into the given directory, parse the sample FASTQ, print a
-# digest of the arrays.
+# One process of test_concurrent_first_builds_all_load: say it is ready
+# (a file of its own in the ready directory), wait for the go file, build
+# into the given directory, parse the sample FASTQ, print a digest of the
+# arrays.
 _FIRST_BUILD = """
 import hashlib, os, sys, time
 from pathlib import Path
 from sketch_rna_tpu_torch.io import native
 native.BUILD_DIR = Path(sys.argv[1])
+Path(sys.argv[4], str(os.getpid())).touch()
 while not os.path.exists(sys.argv[2]):
     time.sleep(0.005)
 ok = native.native_available()
@@ -148,12 +150,18 @@ def test_concurrent_first_builds_all_load(tmp_path):
     holds none: each loads a whole library and parses the sample alike."""
     if shutil.which((os.environ.get("CXX") or "g++").split()[0]) is None:
         pytest.skip("no C++ compiler")
-    build, go = tmp_path / "native", tmp_path / "go"
+    build, go, ready = tmp_path / "native", tmp_path / "go", tmp_path / "ready"
+    ready.mkdir()
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    args = [str(build), str(go), str(ROOT / "examples" / "sample.fq")]
+    args = [str(build), str(go), str(ROOT / "examples" / "sample.fq"), str(ready)]
     procs = [subprocess.Popen([sys.executable, "-c", _FIRST_BUILD, *args], cwd=tmp_path, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for _ in range(6)]
-    time.sleep(1.0)  # every process waits at the go file
+    deadline = time.monotonic() + 120
+    while len(list(ready.iterdir())) < 6:  # every process waits at the go file before any builds
+        assert all(p.poll() is None for p in procs), [p.communicate()[1][-800:] for p in procs if p.poll()]
+        assert time.monotonic() < deadline, f"{len(list(ready.iterdir()))} of 6 processes ready"
+        time.sleep(0.01)
+    assert not build.exists()
     go.touch()
     outs = [p.communicate(timeout=300) for p in procs]
     assert [p.returncode for p in procs] == [0] * 6, [err[-800:] for _, err in outs]
