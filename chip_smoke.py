@@ -80,6 +80,18 @@ without printing its result line:
                 default EM route and twice with --em-segsum on: the two
                 bit-identical, within 1e-9 of the default, S launched
                 once an iteration and twice in the assignment;
+  crosscheck    the card's main path against formulations it shares no
+                code with past the probe: every batch of scale (123) and
+                of the c3 stand-in (256), as the fused engine forms them,
+                through the row matcher (K1 / K2, P, K4) and through the
+                global-sort matcher (match/candidates.py, plain PyTorch)
+                on the same kernel-made sketches: equal tables, no event
+                dropped; ORACLE_PROBLEM (2,000 transcripts, 8,192 reads,
+                k = (21, 31), float64 EM) on the card against the
+                reference math in NumPy (oracle/): collect_pairs equals
+                oracle_sparse_chain, quantify's CSV rows oracle_quant's,
+                values within 5e-9 relative; the roofline lines of scale
+                and scale-multik (run here if those phases did not);
   spill         300 transcripts sharing an 80-base core, ks (15, 31),
                 C=8: per-k tables spill and the batch regroups merged
                 (sort_event_parts: K4 + the merge kernel), equal to a
@@ -135,8 +147,10 @@ timed quant (reads/s, stage seconds), counts kernel launches over the
 timed quant (every count set to 0 just before it: P must launch once a
 k and batch on scale, scale-multik, long-reads and stream-c3, and never
 on the sharded route), checks read-count conservation and zero dropped
-work, and holds the first batch's candidate tables against the plain
-functions on the same tensors.
+work, prints the timed run's roofline (utils/roofline.py, from its
+QuantResult.sizes and stage times; every share of peak at most 1.0) and
+holds the first batch's candidate tables against the plain functions on
+the same tensors.
 
 Then one JSON line per kernel ({"kernels": [...]}: launches on the main
 path, device ms, plain ms, bound in ms and us with the bytes and
@@ -169,17 +183,13 @@ SCALE = (6000, 1_000_000)
 SCALE_MULTIK = (20000, 1 << 21)
 LONG_READS = (2000, 100_000)
 VERY_LONG = (200, 2000, 20000)  # (transcripts, reads, read length)
+ORACLE_PROBLEM = (2000, 8192)  # (transcripts, reads): bench.py's transcript count
 C3_READS = 10_000_000
 CLI_READS = 2_200_000
 REPS = 50  # calls per device-time measurement
 L2_BYTES = 50 * 2**20
-# The H100 SXM's published memory rate; its CUDA cores' 32-bit integer
-# rate (132 SMs x 64 lanes x 1.98 GHz boost), which the published table of
-# peaks leaves out.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "spill", "long-reads",
-          "stream", "sharded", "stream-c3", "cli-stream", "samples")
+PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck", "spill",
+          "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
 RANK_JOIN_S = 420  # a world of rank processes is killed after this long
@@ -342,74 +352,6 @@ def launch_split_ms(torch, fn, arg_sets, prefix, reps=None):
     return split
 
 
-def bound(nbytes: int, ops: int):
-    """(bound ms, "bytes" or "operations"): the larger of the bytes over
-    the memory rate and the integer operations over the integer rate."""
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def sort_work(B: int, W: int, itemsize: int):
-    """(bytes, integer operations) of sorting [B, W] keys: each row read
-    and written once; the ceil(log2 W!) comparisons a comparison sort of
-    a row needs at least, one operation each on 32-bit words (two on
-    int64), whatever network a kernel runs."""
-    need = math.ceil(math.lgamma(W + 1) / math.log(2))
-    return 2 * B * W * itemsize, B * need * (itemsize // 4)
-
-
-def sketch_work(B: int, L: int, ks, caps):
-    """(bytes, integer operations) of sketching [B, L] reads at ks: codes
-    and lengths in, per k a [B, cap] int64 row + bool mask + int32
-    overflow out; ~8 operations per position (the prefix XOR) and per
-    window (its hash and threshold)."""
-    nbytes = B * L + 4 * B + sum(B * cap * 9 + 4 * B for cap in caps)
-    return nbytes, 8 * B * L + sum(8 * B * (L - k + 1) for k in ks)
-
-
-def kept_work(B: int, L: int, k: int, m: int):
-    """(bytes, integer operations) of K3 over [B, L] reads at k with an
-    output width of m: codes and lengths in, [B, m] int64 hashes, [B, m]
-    int32 windows and [B] int32 counts out; ~8 operations per position
-    (the prefix XOR) and per window (its hash, threshold and ballot)."""
-    return B * L + 4 * B + 12 * B * m + 4 * B, 8 * B * L + 8 * B * (L - k + 1)
-
-
-def merge_work(N: int, W: int, itemsize: int):
-    """(bytes, integer operations) of merging the halves of [N, W] rows:
-    each key read and written once; one comparison per output, one
-    operation on 32-bit words (two on int64)."""
-    return 2 * N * W * itemsize, N * W * (itemsize // 4)
-
-
-def probe_work(hashes, mask, length, table):
-    """(bytes, integer operations) of probing [B, S] lanes through a
-    bucket table: each lane's bool mask in and its two int64 outputs out;
-    the int64 hashes in the 32-byte sectors that hold a masked-in lane;
-    the key part (4 * mb bytes) of each bucket row a masked-in lane needs,
-    each row once, and the 8-byte run of each hit's slot, each slot once
-    (this run's data, counted on the card); mb compares a masked-in
-    lane."""
-    flat = mask.reshape(-1)
-    n, on = flat.numel(), int(flat.sum())
-    padded = flat.new_zeros(n + (-n % 4))
-    padded[:n] = flat
-    sectors = int(padded.view(-1, 4).any(dim=1).sum())
-    h = hashes.reshape(-1) & 0xFFFFFFFF
-    rows = (h[flat] >> table.shift).clamp(max=table.packed.shape[0] - 1).unique().numel()
-    runs = h[((length > 0) & mask).reshape(-1)].unique().numel()
-    return 17 * n + 32 * sectors + rows * 4 * table.mb + 8 * runs, on * table.mb
-
-
-def segsum_work(plan, itemsize: int):
-    """(bytes, integer operations) of one segmented sum: each value
-    (itemsize), perm entry (4) and is_start flag (1) read once; seg_end
-    (4) and seg_live (1) read and the sum written once a transcript; one
-    addition a lane, whatever tree adds them."""
-    n_pad, T = plan.perm.numel(), plan.seg_end.numel()
-    return n_pad * (itemsize + 5) + T * (5 + itemsize), n_pad
-
-
 def counters():
     """Each kernel wrapper's launch count (name -> (object, attribute))."""
     from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
@@ -518,6 +460,7 @@ def main_shape_cases(torch):
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
     from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
     from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept, sketch_all_k, sketch_batch
+    from sketch_rna_tpu_torch.utils.roofline import kept_work, sketch_work, sort_work
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -636,6 +579,7 @@ def phase_kernels(torch, results, ctx, parent=None):
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik, window_pad
     from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
     from sketch_rna_tpu_torch.sketch.fracminhash import hash_kept, sketch_all_k, sketch_batch
+    from sketch_rna_tpu_torch.utils.roofline import bound, sort_work
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -813,6 +757,7 @@ def phase_merge(torch, results):
                                                      merge_partition, merge_partition_plain, merge_staged,
                                                      merge_tile, row_sort_plain, row_sort_wide)
     from sketch_rna_tpu_torch.match.rowmatch import I32_MAX, sort_event_parts
+    from sketch_rna_tpu_torch.utils.roofline import bound, merge_work
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
 
@@ -976,6 +921,7 @@ def phase_probe_segsum(torch, results, ctx):
     from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup, bucket_lookup_plain, device_bucket_table
     from sketch_rna_tpu_torch.match.probe import probe
     from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold
+    from sketch_rna_tpu_torch.utils.roofline import bound, probe_work, segsum_work
 
     c3 = c3_problem(torch, ctx)
     index, cfg = c3["index"], c3["config"]
@@ -1260,9 +1206,25 @@ def _records(seqs, prefix):
     return FastaRecords([f"{prefix}{i:06d}" for i in range(len(seqs))], text, 0)
 
 
-def _timed_quant(torch, tag, index, packed, config, n_reads):
+def _roofline(tag, res, quant_s, config):
+    """The timed quant's roofline (utils/roofline.py) from its sizes and
+    stage times, printed as one JSON line: every size counted, no share of
+    peak above 1.0 (the least work cannot take less than the least time)."""
+    from sketch_rna_tpu_torch.utils.roofline import roofline
+
+    sizes = res.sizes
+    require(len(sizes) == 7 and all(v > 0 for v in sizes.values()), f"{tag}: sizes not all counted: {sizes}")
+    out = roofline(sizes, res.timing, quant_s, res.em_iterations, 8 if config.em_dtype == "float64" else 4)
+    print(f"[{tag}] roofline {json.dumps({'sizes': sizes, 'roofline': out})}")
+    over = {name: stage["share"] for name, stage in out.items() if stage.get("share", 0.0) > 1.0}
+    require(not over and out["summary"]["frac_of_elapsed"] <= 1.0, f"{tag}: a share of peak above 1.0: {over}")
+    return out
+
+
+def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     """Warm-up + timed quant; returns (result, seconds, launches of the timed
-    run, its peak device memory in bytes)."""
+    run, its peak device memory in bytes).  Prints the timed run's
+    roofline, kept in ctx["roofline"][tag] when a ctx is given."""
     import numpy as np
 
     from sketch_rna_tpu_torch.pipeline import quantify
@@ -1291,6 +1253,9 @@ def _timed_quant(torch, tag, index, packed, config, n_reads):
     require(res.num_mapped > 0.9 * n_reads, f"only {res.num_mapped} reads mapped")
     require(res.stats["sketch_overflow"] == 0 and res.stats["expand_dropped"] == 0,
             f"dropped work: {res.stats}")
+    line = _roofline(tag, res, quant_s, config)
+    if ctx is not None:
+        ctx.setdefault("roofline", {})[tag] = line
     return res, quant_s, launches, peak
 
 
@@ -1324,19 +1289,20 @@ def _first_batch(torch, tag, index, config, codes, lengths, L):
     return c, n, caps, sorted_rows
 
 
-def phase_scale(torch, results):
+def scale_problem(torch, ctx):
+    """The scale phase's problem: 6,000 transcripts (synth_transcriptome,
+    seed SEED), index built on the card, 1,000,000 reads of 100 bp (seed
+    SEED, padded to 256), k = 31, float32 EM; built once."""
+    if "scale" in ctx:
+        return ctx["scale"]
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
-    from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch
     from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.index.build import build_index
-    from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
-    from sketch_rna_tpu_torch.sketch.fracminhash import sketch_batch
     from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
-    (n_tx, n_reads), read_len = SCALE, 100
+    n_tx, n_reads = SCALE
     seqs = synth_transcriptome(np.random.default_rng(SEED), n_tx, 600, 2500)
     config = QuantConfig(batch_size=BATCH, em_dtype="float32")
     t0 = time.perf_counter()
@@ -1344,10 +1310,22 @@ def phase_scale(torch, results):
     kidx = artifact.per_k[31]
     print(f"[scale] index: {n_tx} transcripts, {sum(s.size for s in seqs)} bases -> {kidx.num_keys} keys, "
           f"{kidx.postings.size} postings in {time.perf_counter() - t0:.3f} s on the card")
-    index = to_device(artifact, DEVICE)
-    codes, lengths = sample_reads(seqs, n_reads, read_len, 256, seed=SEED)
+    codes, lengths = sample_reads(seqs, n_reads, 100, 256, seed=SEED)
+    ctx["scale"] = dict(index=to_device(artifact, DEVICE), codes=codes, lengths=lengths, config=config)
+    return ctx["scale"]
+
+
+def phase_scale(torch, results, ctx):
+    from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.match.row_sort import row_sort, row_sort_plain
+    from sketch_rna_tpu_torch.sketch.fracminhash import sketch_batch
+
+    sc = scale_problem(torch, ctx)
+    index, codes, lengths, config = sc["index"], sc["codes"], sc["lengths"], sc["config"]
+    n_reads = lengths.size
     packed = PackedReads(codes, lengths, [])
-    _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads)
+    _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads, ctx)
     require(launches["K1"] > 0 and launches["K4"] > 0, f"the single-k path skipped a kernel: {launches}")
     require(launches["K2"] == launches["K3"] == 0, f"the single-k path ran a multi-k or long-read kernel: {launches}")
     require(launches["P"] == launches["K1"], f"the probe did not launch P once a batch: {launches}")
@@ -1407,7 +1385,7 @@ def phase_scale_multik(torch, results, ctx):
     index, codes, lengths, config = c3["index"], c3["codes"], c3["lengths"], c3["config"]
     ks, n_reads = config.kmer_lengths, lengths.size
     _, _, launches, ctx["fused_peak_bytes"] = _timed_quant(torch, "scale-multik", index,
-                                                           PackedReads(codes, lengths, []), config, n_reads)
+                                                           PackedReads(codes, lengths, []), config, n_reads, ctx)
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
             f"the multi-k path skipped a kernel: {launches}")
     require(launches["P"] == len(ks) * launches["K2"], f"the probe did not launch P once a k and batch: {launches}")
@@ -1472,6 +1450,135 @@ def phase_segsum_quant(torch, ctx):
           f"{rel:.3g} relative of the default route; em_assign {a.timing['em_assign']:.4f} / "
           f"{b.timing['em_assign']:.4f} s; S launches {la['S']} ({a.em_iterations} iterations + 2)")
     return la["S"]
+
+
+def _crosscheck_batches(torch, tag, problem):
+    """Every batch of a problem, as the fused engine forms it (match_rows,
+    merged regroups included), through the row matcher (sketch_match_step:
+    K1 / K2, P, K4 and the merge) and through the global-sort matcher
+    (match/candidates.py: the searchsorted probe, one flat expansion,
+    torch.sort), both on the same kernel-made sketches: equal tid, score,
+    mask and candidate_spilled, and no event dropped under a budget of the
+    batch's most events a read (from P's run lengths)."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
+    from sketch_rna_tpu_torch.match.candidates import match_batch
+    from sketch_rna_tpu_torch.pipeline import match_rows, sketch_match_step
+    from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+
+    index, codes, lengths, config = problem["index"], problem["codes"], problem["lengths"], problem["config"]
+    ks = tuple(index.kmer_lengths)
+    per_k = [index.per_k[k] for k in ks]
+    done = {"batches": 0, "candidates": 0, "first_passes": 0}
+
+    def checked_step(c, n, index, cfg, caps):
+        sketches = sketch_reads(c, n, ks, cfg.sketch_fraction, caps)
+        row = sketch_match_step(c, n, index, cfg, caps, sketch=lambda *_: sketches)
+        if len(ks) > 1 and cfg.match_per_k_tables and int(row.stats["candidate_spilled_per_k"]):
+            done["first_passes"] += 1  # match_rows regroups this batch merged: compared then
+            return row
+        most = max(int(length.sum(dim=1).max()) for _, length in
+                   (probe_index(h, m, ki) for (h, m, _), ki in zip(sketches, per_k)))
+        glob = match_batch([h for h, _, _ in sketches], [m for _, m, _ in sketches], [ki.keys for ki in per_k],
+                           [ki.row_ptr for ki in per_k], [ki.postings for ki in per_k],
+                           chain_fraction=cfg.chain_fraction, expand_per_read=max(most, 1),
+                           candidate_capacity=cfg.candidate_capacity)
+        b = done["batches"]
+        require(int(glob.stats["expand_dropped"].sum()) == 0, f"{tag} batch {b}: the global-sort matcher dropped "
+                f"{glob.stats['expand_dropped'].tolist()} events under a budget of {most} a read")
+        same = all(torch.equal(getattr(row, f), getattr(glob, f)) for f in ("tid", "score", "mask"))
+        require(same and int(row.stats["candidate_spilled"]) == int(glob.stats["candidate_spilled"]),
+                f"{tag} batch {b}: the row matcher's tables differ from the global-sort matcher's")
+        done["batches"] += 1
+        done["candidates"] += int(row.mask.sum())
+        return row
+
+    t0 = time.perf_counter()
+    _, _, n_padded, stats = match_rows(index, torch.from_numpy(codes), lengths, config, step=checked_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(done["batches"] == n_padded // config.batch_size == -(-lengths.size // config.batch_size),
+            f"{tag}: {done['batches']} batches compared of {n_padded // config.batch_size}")
+    print(f"[crosscheck] {tag}: {lengths.size} reads, k = {ks}: all {done['batches']} batches' row-matcher tables "
+          f"== the global-sort matcher's ({done['candidates']} candidates compared, 0 events dropped, "
+          f"{done['first_passes']} per-k spills regrouped first, candidate_spilled {int(stats['candidate_spilled'])}) "
+          f"in {seconds:.1f} s")
+
+
+def _crosscheck_oracle(torch):
+    """ORACLE_PROBLEM on the card against the C++ tool's math in NumPy
+    (oracle/): collect_pairs' candidates of every read equal
+    oracle_sparse_chain's (its top C by score desc, tid asc), with nothing
+    dropped or overflowed; quantify's CSV rows equal oracle_quant's, pi
+    and NumReads within 5e-9 relative (float64 EM, PARITY.md deviation 6)."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.index.artifact import to_device
+    from sketch_rna_tpu_torch.index.build import build_index
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.oracle import oracle_quant
+    from sketch_rna_tpu_torch.pipeline import collect_pairs, quantify
+    from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
+
+    n_tx, n_reads = ORACLE_PROBLEM
+    ks = (21, 31)
+    seqs = synth_transcriptome(np.random.default_rng(SEED), n_tx)
+    config = QuantConfig(kmer_lengths=ks, batch_size=BATCH, max_read_len=128, em_dtype="float64")
+    t0 = time.perf_counter()
+    index = to_device(build_index(_records(seqs, "O"), config, device=DEVICE), DEVICE)
+    codes, lengths = sample_reads(seqs, n_reads, 100, config.max_read_len, seed=SEED)
+    packed = PackedReads(codes, lengths, [])
+    reads, tids, scores, stats = collect_pairs(index, packed, config)
+    res = quantify(index, packed, config)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segments, pi, weighted, csv_tids = oracle_quant(
+        seqs, {i: codes[i, : lengths[i]] for i in range(n_reads)}, ks, config.sketch_fraction,
+        config.chain_fraction, config.em_max_iterations, config.em_convergence)
+    oracle_s = time.perf_counter() - t0
+    C = config.candidate_capacity
+    spill = sum(max(len(cands) - C, 0) for cands in segments.values())
+    require(stats["sketch_overflow"] == 0 and stats["expand_dropped"] == 0 and stats["candidate_spilled"] == spill,
+            f"oracle problem: loss stats {stats}, the oracle's candidates past C: {spill}")
+    got = [[] for _ in range(n_reads)]
+    for r, t, sc in zip(reads.tolist(), tids.tolist(), scores.tolist()):
+        got[r].append((t, sc))
+    bad = [i for i in range(n_reads) if got[i] != segments[i][:C]]
+    require(not bad, f"oracle problem: {len(bad)} reads' candidates differ from oracle_sparse_chain's, "
+                     f"first {bad[:3]}: {[(got[i], segments[i]) for i in bad[:1]]}")
+    rows = [t for t in range(n_tx) if res.has_entry[t]]
+    require(res.num_reads == len(segments) and rows == csv_tids,
+            f"oracle problem: CSV rows {len(rows)} against the oracle's {len(csv_tids)}")
+    d_pi, d_counts = _rel_diff(res.pi, pi), _rel_diff(res.weighted_counts[rows], weighted[rows])
+    require(d_pi <= 5e-9 and d_counts <= 5e-9, f"oracle problem: pi {d_pi}, NumReads {d_counts} relative")
+    print(f"[crosscheck] oracle: {n_tx} transcripts, {n_reads} reads, k = {ks}, float64: collect_pairs == "
+          f"oracle_sparse_chain ({reads.size} pairs, candidates past C {spill}, loss stats 0); CSV rows {len(rows)} "
+          f"== oracle_quant's, pi within {d_pi:.3g}, NumReads within {d_counts:.3g} relative; card (index build, "
+          f"collect_pairs, quantify) {card_s:.1f} s, oracle on the host {oracle_s:.1f} s")
+
+
+def phase_crosscheck(torch, ctx):
+    """The card's main path against independent formulations at scale:
+    every batch of scale and the c3 problem against the global-sort
+    matcher, ORACLE_PROBLEM against the reference math, and the scale
+    phases' roofline lines (run here if those phases did not run)."""
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+
+    problems = (("scale", scale_problem(torch, ctx)), ("scale-multik", c3_problem(torch, ctx)))
+    for tag, problem in problems:
+        _crosscheck_batches(torch, tag, problem)
+    _crosscheck_oracle(torch)
+    rooflines = ctx.setdefault("roofline", {})
+    for tag, p in problems:
+        if tag not in rooflines:
+            _timed_quant(torch, tag, p["index"], PackedReads(p["codes"], p["lengths"], []), p["config"],
+                         p["lengths"].size, ctx)
+        summary = rooflines[tag]["summary"]
+        print(f"[crosscheck] {tag} roofline: {summary['dominant_bound']} leads at "
+              f"{summary['frac_of_peak']:.3g} of its peak; the stages' least time is "
+              f"{summary['frac_of_elapsed']:.3g} of the quant's")
 
 
 def phase_spill(torch, results):
@@ -1812,6 +1919,7 @@ def phase_sharded(torch, results, ctx, smi):
     from sketch_rna_tpu_torch.io.packing import PackedReads
     from sketch_rna_tpu_torch.match.row_sort import bitonic_merge_pair, merge_pairs, row_sort_plain
     from sketch_rna_tpu_torch.pipeline import quantify, quantify_sharded
+    from sketch_rna_tpu_torch.utils.roofline import bound, merge_work
 
     c3 = c3_problem(torch, ctx)
     config = dataclasses.replace(c3["config"], em_dtype="float64")
@@ -2270,8 +2378,9 @@ def main() -> int:
         "probe-segsum": lambda: phase_probe_segsum(torch, results, ctx),
         "sample": phase_sample,
         "sample-multik": phase_sample_multik,
-        "scale": lambda: phase_scale(torch, results),
+        "scale": lambda: phase_scale(torch, results, ctx),
         "scale-multik": lambda: phase_scale_multik(torch, results, ctx),
+        "crosscheck": lambda: phase_crosscheck(torch, ctx),
         "spill": lambda: phase_spill(torch, results),
         "long-reads": lambda: phase_long_reads(torch, results),
         "stream": lambda: phase_stream(torch, ctx),

@@ -12,13 +12,15 @@ easy to find:
   sketch/    FracMinHash threshold + set dedup (the kernels' plain versions)
   index/     `.npz` and reference-binary index artifacts, the build,
              transfer to the device
-  match/     index probe, posting expansion, row sort kernel (K4), top-C
+  match/     index probe, posting expansion, row sort kernel (K4), top-C;
+             the global-sort matcher that checks them (candidates.py)
   em/        equivalence classes, EM + assignment, EM checkpoints
   pipeline   the fused engine, routing, multi-sample, CSV
   stream     the streamed engine past the fused bound
   dist/      the process group, the (data, index) mesh, collectives and
              the sharded engine a rank runs (index shards: index/shard.py)
-  utils/     synthetic data, phase timer, profiler hook
+  oracle/    the reference's math in scalar NumPy, the golden model
+  utils/     synthetic data, phase timer, profiler hook, the H100 roofline
   csrc/      CUDA C++ sources of the kernels (built lazily by kernels.py)
 
 The package imports torch and numpy only — never jax, and nothing from

@@ -8,11 +8,16 @@ a pure XOR of per-offset rotated seeds,
 
 so a [k, 4] table of the low 32 bits of srol^(k-1-j)(seed_b) evaluates
 every window independently: no rolling recurrence, no scan.
+
+Two scalar forms of the full 64-bit hash, the published rolling
+recurrence and the direct windowed XOR, are the reference oracle's
+(oracle/reference_oracle.py); tests hold them against each other.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +46,35 @@ def srol(x: int, d: int = 1) -> int:
     if d31:
         hi = ((hi << d31) | (hi >> (31 - d31))) & _MASK31
     return (hi << 33) | lo
+
+
+def nthash_forward_scalar(codes: Sequence[int], k: int) -> List[int]:
+    """64-bit forward hashes of every k-mer by the published rolling
+    recurrence, fh(i+1) = srol(fh(i)) ^ srol^k(seed[s_i]) ^ seed[s_(i+k)]
+    (nthash::NtHash roll / get_forward_hash, src/sketch.cpp:31-36)."""
+    n = len(codes)
+    if n < k:
+        return []
+    h = 0
+    for j in range(k):
+        h = srol(h, 1) ^ NTHASH_SEEDS[codes[j]]
+    out = [h]
+    for i in range(1, n - k + 1):
+        h = srol(h, 1) ^ srol(NTHASH_SEEDS[codes[i - 1]], k) ^ NTHASH_SEEDS[codes[i + k - 1]]
+        out.append(h)
+    return out
+
+
+def nthash_forward_scalar_direct(codes: Sequence[int], k: int) -> List[int]:
+    """The same hashes by the direct windowed XOR, with no rolling state:
+    independent of nthash_forward_scalar, which tests hold it against."""
+    out = []
+    for i in range(len(codes) - k + 1):
+        h = 0
+        for j in range(k):
+            h ^= srol(NTHASH_SEEDS[codes[i + j]], k - 1 - j)
+        out.append(h)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

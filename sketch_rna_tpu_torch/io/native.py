@@ -6,6 +6,8 @@ the port's PackedReads / Packed2Reads / FastaRecords:
   pack_fastq_native(path, min_len, pad_len)  -> (PackedReads, stats)
   NativeFastqScan(path, min_len)             one scan, then pack_range /
                                              pack_range2 of any record range
+  chunks_from_scan(scan, chunk_reads, ...)   8-bit chunks, packed one ahead
+  iter_fastq_chunks_native(path, ...)        the scan and its 8-bit chunks
   chunks_from_scan2(scan, chunk_reads, ...)  2-bit chunks, packed one ahead
   LazyScanFeed(path, ...)                    the same feed, scanning on a
                                              background thread
@@ -257,6 +259,58 @@ class NativeFastqScan:
         self.close()
 
 
+def _double_buffered(scan: NativeFastqScan, chunk_reads: int, pack, close: bool):
+    """Yield pack(start, count) for each chunk of up to chunk_reads of the
+    scan's reads, in order.  A background thread packs chunk c+1 while
+    the consumer works on chunk c (the C call releases the GIL).  Closes
+    the scan when done unless close=False."""
+    try:
+        n = scan.num_reads
+        if n == 0:
+            return
+        starts = list(range(0, n, chunk_reads))
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(pack, starts[0], min(chunk_reads, n))
+            for s in starts[1:]:
+                cur = fut.result()
+                fut = ex.submit(pack, s, min(chunk_reads, n - s))
+                yield cur
+            yield fut.result()
+    finally:
+        if close:
+            scan.close()
+
+
+def chunks_from_scan(
+    scan: NativeFastqScan,
+    chunk_reads: int,
+    pad_len: Optional[int] = None,
+    n_threads: Optional[int] = None,
+    close: bool = True,
+):
+    """Yield 8-bit PackedReads chunks of up to chunk_reads reads from an
+    open scan, all at one pad_len (the scan's longest read by default),
+    double-buffered as _double_buffered says."""
+    L = pad_len if pad_len is not None else max(scan.max_len, 1)
+    yield from _double_buffered(scan, chunk_reads, lambda s, c: scan.pack_range(s, c, L, n_threads), close)
+
+
+def iter_fastq_chunks_native(
+    path: str,
+    min_len: int,
+    chunk_reads: int,
+    pad_len: Optional[int] = None,
+    n_threads: Optional[int] = None,
+):
+    """Scan a FASTQ and feed its 8-bit chunks (chunks_from_scan), padded to
+    pad_len or the longest read, at least min_len; the scan closes at the
+    end."""
+    scan = NativeFastqScan(path, min_len)
+    if pad_len is None:
+        pad_len = max(scan.max_len, min_len, 1)
+    yield from chunks_from_scan(scan, chunk_reads, pad_len, n_threads)
+
+
 def chunks_from_scan2(
     scan: NativeFastqScan,
     chunk_reads: int,
@@ -267,32 +321,15 @@ def chunks_from_scan2(
 ):
     """Yield 2-bit Packed2Reads chunks of up to chunk_reads reads from an
     open scan, all at one pad_len (rounded up to a multiple of 4), rows
-    padded to row_multiple.  A background thread packs chunk c+1 while
-    the consumer works on chunk c (the C call releases the GIL).  Closes
-    the scan when done unless close=False."""
-    try:
-        n = scan.num_reads
-        if n == 0:
-            return
-        L = pad_len if pad_len is not None else max(scan.max_len, 1)
-        L = ((L + 3) // 4) * 4
-        m = max(row_multiple, 1)
+    padded to row_multiple, double-buffered as _double_buffered says."""
+    L = pad_len if pad_len is not None else max(scan.max_len, 1)
+    L = ((L + 3) // 4) * 4
+    m = max(row_multiple, 1)
 
-        def pack(s):
-            c = min(chunk_reads, n - s)
-            return scan.pack_range2(s, c, L, n_threads, out_rows=((c + m - 1) // m) * m)
+    def pack(s, c):
+        return scan.pack_range2(s, c, L, n_threads, out_rows=((c + m - 1) // m) * m)
 
-        starts = list(range(0, n, chunk_reads))
-        with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(pack, starts[0])
-            for s in starts[1:]:
-                cur = fut.result()
-                fut = ex.submit(pack, s)
-                yield cur
-            yield fut.result()
-    finally:
-        if close:
-            scan.close()
+    yield from _double_buffered(scan, chunk_reads, pack, close)
 
 
 class LazyScanFeed:

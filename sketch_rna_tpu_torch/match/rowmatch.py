@@ -50,12 +50,15 @@ class MatchResult:
     score: [B, C] int32 event count (0 on empty lanes).
     mask:  [B, C] bool validity.
     stats: overflow counters as 0-d int64 tensors.
+    lanes: event lanes grouped, B x the summed per-k row widths, a host
+           count (pipeline.sketch_match_step sets it; 0 elsewhere).
     """
 
     tid: torch.Tensor
     score: torch.Tensor
     mask: torch.Tensor
     stats: Dict[str, torch.Tensor]
+    lanes: int = 0
 
 
 def pow2ceil(n: int) -> int:

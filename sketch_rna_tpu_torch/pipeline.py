@@ -36,7 +36,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,8 +55,9 @@ from sketch_rna_tpu_torch.match.rowmatch import (
     pow2ceil,
     row_expand_from_runs,
 )
-from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+from sketch_rna_tpu_torch.sketch.dispatch import sketch_ops, sketch_reads
 from sketch_rna_tpu_torch.utils.profiling import maybe_trace
+from sketch_rna_tpu_torch.utils.roofline import probe_shape_bytes
 from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 
 log = logging.getLogger(__name__)
@@ -75,6 +76,44 @@ STAT_KEYS = LOSS_KEYS + ("candidate_spilled_per_k",)
 
 @dataclasses.dataclass
 class QuantResult:
+    """One quant's result: abundances, counts, CSV membership, stats,
+    stage times and work counts.
+
+    sizes: the work a fused quant did, counted on the host from the
+    shapes the engine already knows (no device sync), the inputs of
+    utils/roofline.py; empty from the streamed and sharded engines, as in
+    the JAX package.  Keys:
+
+      reads_padded  rows the sketch kernels took.  The port pads no batch,
+                    so this is the read count; the JAX engine pads each
+                    length group to whole batches, and the two agree when
+                    batch_size divides every group.
+      hash_windows  k-mer windows hashed: rows x (L - k + 1) a k, L a
+                    group's width (its longest read rounded up to 8), as
+                    the JAX engine counts them.
+      hash_ops      the sketch's integer operations by utils/roofline.py's
+                    rule (sketch/dispatch.py sketch_ops: 8 a code
+                    position, 8 a window).  The JAX package counts k seed
+                    XORs a window, its windowed XOR; the port's kernels
+                    hash a window in O(1) from a prefix, so the two differ.
+      probe_bytes   the most bytes the bucket probe can move at these
+                    shapes (roofline.probe_shape_bytes: every sketch lane
+                    masked in).  The JAX package counts its whole [key |
+                    start | length] row gathered a lane; P reads only a
+                    masked-in lane's key part, so the two differ.
+      group_lanes   event lanes grouped: rows x the per-k row widths, each
+                    k's batch maximum of events a read rounded up to a
+                    power of two (a regrouped batch counts again).  The
+                    JAX engine counts its tier plan's or expansion
+                    budget's lanes, so the two differ.
+      em_lanes      lanes of the EM's table: the equivalence-class table
+                    (past 1024 padded reads) or the per-read one.
+      em_width_max  the EM table's width.
+
+    The last two equal the JAX package's where it builds one table of the
+    same width (the per-read table); its class tables are tiered apart.
+    """
+
     names: List[str]
     pi: np.ndarray  # [T] final EM abundances
     weighted_counts: np.ndarray  # [T] soft-assigned read counts
@@ -85,6 +124,16 @@ class QuantResult:
     stats: Dict[str, int]
     timing: Dict[str, float] = dataclasses.field(default_factory=dict)
     lengths: Optional[np.ndarray] = None  # [T] true transcript lengths
+    sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def csv_rows(self) -> List[Tuple[str, float, float]]:
+        """(name, NumReads, EM_Abundance) of each CSV row, in transcript
+        index order (the reference writes unordered_map order)."""
+        return [
+            (self.names[t], float(self.weighted_counts[t]), float(self.pi[t]))
+            for t in range(len(self.names))
+            if self.has_entry[t]
+        ]
 
     def tpm(self) -> np.ndarray:
         """Transcripts per million from the soft-assigned counts and the
@@ -162,13 +211,26 @@ def sketch_match_step(
     )
     res.stats["sketch_overflow"] = sum(ov for _, _, ov in sketches)
     res.stats["expand_dropped"] = sum(dropped)
+    res.lanes = sum(key.numel() for key in parts)
     return res
 
 
+def length_groups(lengths: np.ndarray, padded_len: int) -> List[Tuple[int, Union[slice, np.ndarray]]]:
+    """The reads' padded-length groups, as the JAX engine forms them:
+    (pad, rows) in ascending pad, pad a power of two >= 256 cut to
+    padded_len, rows a slice of every read when there is one group."""
+    pad_of = np.maximum(256, 1 << np.ceil(np.log2(np.maximum(lengths, 1))).astype(np.int64))
+    pads = np.minimum(pad_of, max(int(padded_len), 256))
+    unique_pads = sorted(set(pads.tolist()))
+    if len(unique_pads) == 1:
+        return [(unique_pads[0], slice(None))]
+    return [(pad, np.flatnonzero(pads == pad)) for pad in unique_pads]
+
+
 def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig,
-               step: Callable[..., MatchResult] = sketch_match_step):
+               step: Callable[..., MatchResult] = sketch_match_step, sizes: Optional[Dict[str, int]] = None):
     """Candidate tables of every read, grouped by padded length as the
-    JAX engine groups them.
+    JAX engine groups them (length_groups).
 
     step: what matches one batch, with sketch_match_step's first five
     parameters (the sharded engine's gathers events over the index
@@ -180,23 +242,20 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     each group's rows, cut to the group's width, move to the device once.
     lengths: [N] host lengths.  Returns (tid [N', C] int32, score [N', C]
     int32, padded row count of the JAX engine, stats of 0-d tensors); the
-    rows follow the groups, not the input order.
+    rows follow the groups, not the input order.  sizes: a dict that
+    receives QuantResult.sizes' match keys (the step's tables must carry
+    `lanes`, as sketch_match_step's do).
     """
     ks = tuple(index.kmer_lengths)
     dev = index.device
     B = config.batch_size
     lengths_np = np.asarray(lengths)
-    pad_of = np.maximum(256, 1 << np.ceil(np.log2(np.maximum(lengths_np, 1))).astype(np.int64))
-    padded_len = codes.shape[1]
-    pads = np.minimum(pad_of, max(int(padded_len), 256))
-    unique_pads = sorted(set(pads.tolist()))
     results: List[MatchResult] = []
     batches = []  # (codes, lengths, caps) of each result, to regroup it
     n_padded = 0
-    for pad in unique_pads:
-        rows = slice(None) if len(unique_pads) == 1 else np.flatnonzero(pads == pad)
+    for pad, rows in length_groups(lengths_np, codes.shape[1]):
         n_rows = int(lengths_np[rows].size)
-        width = min(pad, padded_len)
+        width = min(pad, codes.shape[1])
         l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), max(ks)), 8))
         sel = rows if isinstance(rows, slice) else torch.from_numpy(rows).to(codes.device)
         group = codes[sel, :l_eff].contiguous().to(dev)
@@ -207,6 +266,8 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
             c, n = group[b0 : b0 + B], group_lengths[b0 : b0 + B]
             results.append(step(c, n, index, config, caps))
             batches.append((c, n, caps))
+            if sizes is not None:
+                _count_batch(sizes, index, c.shape[0], l_eff, caps)
     if len(ks) > 1 and config.match_per_k_tables:
         # A per-k table that spilled makes its batch's intersection
         # inexact: group those batches again as merged K-wide rows, which
@@ -217,12 +278,46 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
             c, n, caps = batches[i]
             redo = step(c, n, index, merged, caps)
             redo.stats["candidate_spilled_per_k"] = results[i].stats["candidate_spilled_per_k"]
+            redo.lanes += results[i].lanes
             results[i] = redo
         if any(spilled):
             log.info("per-k candidate tables spilled in %d of %d batches; regrouped them merged",
                      int(np.count_nonzero(spilled)), len(results))
+    if sizes is not None:
+        sizes["group_lanes"] = sizes.get("group_lanes", 0) + sum(r.lanes for r in results)
     stats = {key: sum(r.stats[key] for r in results) for key in STAT_KEYS}
     return torch.cat([r.tid for r in results]), torch.cat([r.score for r in results]), n_padded, stats
+
+
+def _count_batch(sizes: Dict[str, int], index: DeviceIndex, rows: int, width: int, caps: Sequence[int]) -> None:
+    """Add one batch of `rows` reads cut to `width` to the sizes' sketch
+    and probe counts (QuantResult.sizes)."""
+    ks = tuple(index.kmer_lengths)
+    add = {
+        "reads_padded": rows,
+        "hash_windows": sum(rows * max(width - k + 1, 0) for k in ks),
+        "hash_ops": sketch_ops(rows, width, ks),
+        "probe_bytes": sum(probe_shape_bytes(rows * cap, index.per_k[k].bucket.mb) for k, cap in zip(ks, caps)),
+    }
+    for key, v in add.items():
+        sizes[key] = sizes.get(key, 0) + v
+
+
+def collect_pairs(index: DeviceIndex, packed: PackedReads, config: QuantConfig):
+    """Every read's candidates as flat host pairs: (read row, tid, score)
+    int32 arrays, rows in the packed reads' order and each row's pairs by
+    (score desc, tid asc), plus the loss stats expand_dropped,
+    candidate_spilled and sketch_overflow as ints (match_rows, the fused
+    engine's matching, on the index's device)."""
+    tid, score, _, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, config)
+    groups = length_groups(np.asarray(packed.lengths), packed.codes.shape[1])
+    order = np.arange(packed.num_reads) if len(groups) == 1 else np.concatenate([rows for _, rows in groups])
+    tid_np, score_np = tid.cpu().numpy(), score.cpu().numpy()
+    row, col = np.nonzero(score_np > 0)  # a candidate scores >= 1
+    read = order[row]
+    keep = np.argsort(read, kind="stable")
+    pairs = (read[keep].astype(np.int32), tid_np[row, col][keep], score_np[row, col][keep])
+    return (*pairs, {key: int(stats[key]) for key in LOSS_KEYS})
 
 
 def _empty_result(index: DeviceIndex) -> QuantResult:
@@ -384,7 +479,9 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     timing: Dict[str, float] = {"index_upload": index.upload_s}
 
     t0 = time.perf_counter()
-    tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, config)
+    sizes: Dict[str, int] = {}
+    tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, config,
+                                                     sizes=sizes)
     host_stats = {key: int(v) for key, v in stats.items()}
     for key in LOSS_KEYS:
         if host_stats[key]:
@@ -408,8 +505,11 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     _sync(dev)
     timing["classes"] = time.perf_counter() - t0
 
-    return em_assign([table], static_base, static_has, index, config, num_reads=R, num_mapped=num_mapped,
-                     stats=host_stats, timing=timing)
+    sizes["em_lanes"], sizes["em_width_max"] = table[0].numel(), table[0].shape[1]
+    result = em_assign([table], static_base, static_has, index, config, num_reads=R, num_mapped=num_mapped,
+                       stats=host_stats, timing=timing)
+    result.sizes = sizes
+    return result
 
 
 def quantify_sharded(

@@ -23,6 +23,7 @@ from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
 from sketch_rna_tpu_torch.hash.sketch_kernel import MAX_WINDOWS, fused_sketch, fused_sketch_multik, window_pad
 from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
 from sketch_rna_tpu_torch.sketch.fracminhash import dedup_select
+from sketch_rna_tpu_torch.utils.roofline import kept_work, sketch_work
 
 # Bytes of one slice's worst-case kept hashes (every window kept, as at
 # fraction 0.9999): the dedup holds them, their sorted copy and, past
@@ -45,6 +46,15 @@ def _sketch_long(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: f
         return parts[0]
     hashes, masks, overflow = zip(*parts)
     return torch.cat(hashes), torch.cat(masks), sum(overflow)
+
+
+def sketch_ops(B: int, L: int, ks: Sequence[int]) -> int:
+    """Integer operations of sketch_reads on [B, L] reads at ks, by the
+    rules of utils/roofline.py: one fused launch reads the codes once for
+    all its ks (sketch_work), K3 once a k (kept_work)."""
+    fused = [k for k in ks if window_pad(L, k) <= MAX_WINDOWS]
+    ops = sketch_work(B, L, fused, [0] * len(fused))[1] if fused else 0
+    return ops + sum(kept_work(B, L, k, 0)[1] for k in ks if k not in fused)
 
 
 def sketch_reads(

@@ -22,7 +22,7 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32
+from sketch_rna_tpu_torch.hash.nthash import nthash_batch_u32, nthash_forward_scalar
 from sketch_rna_tpu_torch.match.row_sort import row_sort_plain
 
 SENTINEL = 0xFFFFFFFF
@@ -138,3 +138,16 @@ def dedup_select(
     mask = hs != SENTINEL
     n_overflow = torch.clamp(n_unique - capacity, min=0).sum()
     return hs, mask, n_overflow
+
+
+def sketch_scalar(codes, k: int, fraction: float) -> set:
+    """The reference's sketch of one sequence as a Python set of the kept
+    low-32-bit hashes, one k-mer at a time: the reference oracle's
+    (oracle/reference_oracle.py), independent of every batched path."""
+    thr = fracminhash_threshold(fraction)
+    out = set()
+    for h in nthash_forward_scalar(list(codes), k):
+        h32 = h & 0xFFFFFFFF
+        if h32 <= thr:
+            out.add(h32)
+    return out

@@ -10,6 +10,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
@@ -24,7 +26,9 @@ names = [m.name for m in pkgutil.walk_packages(sketch_rna_tpu_torch.__path__, "s
 for name in names:
     importlib.import_module(name)
 assert {"sketch_rna_tpu_torch.dist.quant_stream", "sketch_rna_tpu_torch.dist.collectives",
-        "sketch_rna_tpu_torch.utils.profiling", "sketch_rna_tpu_torch.index.shard"} <= set(names), names
+        "sketch_rna_tpu_torch.utils.profiling", "sketch_rna_tpu_torch.index.shard",
+        "sketch_rna_tpu_torch.oracle.reference_oracle", "sketch_rna_tpu_torch.match.candidates",
+        "sketch_rna_tpu_torch.utils.roofline"} <= set(names), names
 sys.argv = ["chip_smoke.py"]
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu", "triton"))
@@ -65,3 +69,24 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
     assert "PORT-IMPORT-CLEAN" in out.stdout.decode()
+
+
+# The modules that carry the JAX package's oracle, global-sort matcher,
+# roofline and 8-bit chunk feed: each alone, in a fresh interpreter.
+_ALONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu"))
+assert not bad, bad
+print("ALONE-CLEAN")
+"""
+
+
+@pytest.mark.parametrize("module", ["sketch_rna_tpu_torch.oracle", "sketch_rna_tpu_torch.match.candidates",
+                                    "sketch_rna_tpu_torch.utils.roofline", "sketch_rna_tpu_torch.io.native"])
+def test_new_module_alone_imports_no_jax(module):
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", _ALONE, module], env=env, capture_output=True, timeout=300,
+                         cwd=_REPO)
+    assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
+    assert "ALONE-CLEAN" in out.stdout.decode()

@@ -4,7 +4,8 @@ Both bind the same library: the fixture points the JAX binding at the
 port's build of it (the same source and flags), so a JAX build that
 another process is rewriting in place cannot fail the comparison.  On
 the same plain and gzip FASTQ / FASTA files every array, id and count
-must be equal, and equal to the port's Python parsers.  The tests skip,
+must be equal, and equal to the port's Python parsers; so must the 8-bit
+and 2-bit chunk feeds.  The tests skip,
 with the reason, only when the library cannot be built on this machine.
 """
 
@@ -94,6 +95,38 @@ def test_scan_ranges_and_chunks_equal_jax(lib, tmp_path, gz):
                 np.testing.assert_array_equal(g.codes2, w.codes2)
                 np.testing.assert_array_equal(g.lengths, w.lengths)
                 assert (g.pad_len, g.num_reads, g.codes2.shape[0] % multiple) == (w.pad_len, w.num_reads, 0)
+
+
+def _same_chunks(got, want, pad_len):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+        np.testing.assert_array_equal(g.lengths, w.lengths)
+        assert g.padded_len == w.padded_len == pad_len
+
+
+@pytest.mark.parametrize("chunk_reads", [64, 250, 4096])
+def test_8bit_chunk_feed_equals_jax(lib, tmp_path, chunk_reads):
+    """chunks_from_scan and iter_fastq_chunks_native: the JAX package's
+    chunks, a short last chunk, one shared pad_len, and the scan left
+    open by close=False, closed by default."""
+    path = _fastq(tmp_path, np.random.default_rng(4))
+    with native.NativeFastqScan(path, 31) as scan, jax_native.NativeFastqScan(path, 31) as ref:
+        n = scan.num_reads
+        assert n % chunk_reads
+        got = list(native.chunks_from_scan(scan, chunk_reads, 157, close=False))
+        _same_chunks(got, list(jax_native.chunks_from_scan(ref, chunk_reads, 157, close=False)), 157)
+        assert [c.num_reads for c in got] == [min(chunk_reads, n - s) for s in range(0, n, chunk_reads)]
+        np.testing.assert_array_equal(np.concatenate([c.codes for c in got]), scan.pack_range(0, n, 157).codes)
+        assert scan._h is not None  # close=False: the scan stays open for more
+        got = list(native.chunks_from_scan(scan, chunk_reads))  # pad_len: the longest read
+        _same_chunks(got, list(jax_native.chunks_from_scan(ref, chunk_reads)), scan.max_len)
+        assert scan._h is None
+    for pad_len in (None, 170):
+        got = list(native.iter_fastq_chunks_native(path, 31, chunk_reads, pad_len))
+        want = list(jax_native.iter_fastq_chunks_native(path, 31, chunk_reads, pad_len))
+        _same_chunks(got, want, pad_len or max(c.lengths.max() for c in got))
+        assert sum(c.num_reads for c in got) == n
 
 
 def test_lazy_scan_feed_equals_jax(lib, tmp_path):
