@@ -92,6 +92,20 @@ without printing its result line:
                 oracle_sparse_chain, quantify's CSV rows oracle_quant's,
                 values within 5e-9 relative; the roofline lines of scale
                 and scale-multik (run here if those phases did not);
+  fuzz          the oracle fuzz's trials 777000 .. 777047 on the card
+                (oracle/fuzz.py, as scripts/fuzz_oracle_torch.py runs
+                them), trial i in regime i mod 8 (fused one k, fused 2-3
+                ks, streamed with tiny class buffers, sharded at mesh
+                (1, 1), 1.1-2 kb reads, --em-segsum on, nine ks, 20 kb
+                reads at sketch fraction 0.9), every other knob from the
+                seed: collect_pairs == oracle_sparse_chain, pi and NumReads
+                within 5e-9 of oracle_quant, equal CSV rows; at most a
+                tenth skipped for a capacity stat; every kernel of
+                counters(), the merge's partition launch included, launched
+                in the phase; then a full batch of 8,192 reads holding one
+                read past 16,384 events: that read sorts in a row slice of
+                its own, the tables equal the plain functions', and the
+                peak device memory with it and without it are printed;
   spill         300 transcripts sharing an 80-base core, ks (15, 31),
                 C=8: per-k tables spill and the batch regroups merged
                 (sort_event_parts: K4 + the merge kernel), equal to a
@@ -184,12 +198,16 @@ SCALE_MULTIK = (20000, 1 << 21)
 LONG_READS = (2000, 100_000)
 VERY_LONG = (200, 2000, 20000)  # (transcripts, reads, read length)
 ORACLE_PROBLEM = (2000, 8192)  # (transcripts, reads): bench.py's transcript count
+# The fuzz phase: seeds FUZZ_BASE .. FUZZ_BASE + FUZZ_TRIALS - 1 of
+# oracle/fuzz.py (scripts/fuzz_oracle_torch.py's default base), trial i
+# in regime i mod 8.
+FUZZ_BASE, FUZZ_TRIALS = 777000, 48
 C3_READS = 10_000_000
 CLI_READS = 2_200_000
 REPS = 50  # calls per device-time measurement
 L2_BYTES = 50 * 2**20
-PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck", "spill",
-          "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "samples")
+PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck", "fuzz",
+          "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
 RANK_JOIN_S = 420  # a world of rank processes is killed after this long
@@ -1581,6 +1599,124 @@ def phase_crosscheck(torch, ctx):
               f"{summary['frac_of_elapsed']:.3g} of the quant's")
 
 
+def phase_fuzz(torch, results, smi):
+    """The seeded trials of sketch_rna_tpu_torch.oracle.fuzz (as
+    scripts/fuzz_oracle_torch.py runs them) on the card: trial i
+    of FUZZ_TRIALS takes regime i mod 8 (fused one k; fused 2-3 ks;
+    streamed, tiny buffers; sharded (1, 1); long reads; --em-segsum on;
+    nine ks; 20 kb reads at sketch fraction 0.9), every other knob drawn
+    from its seed.  Each trial holds collect_pairs to oracle_sparse_chain
+    exactly, pi and NumReads to oracle_quant within 5e-9 relative and the
+    CSV rows exactly, or is skipped for a capacity stat (sketch_overflow,
+    candidate_spilled): at most a tenth may be.  Every kernel of
+    counters() must launch in the phase, the merge's partition launch
+    included."""
+    from sketch_rna_tpu_torch.oracle import fuzz
+
+    compared, skipped = 0, {}
+    worst = {"pi_rel": 0.0, "numreads_rel": 0.0}
+    by_regime = {regime: {} for regime in fuzz.REGIMES}  # launches summed over each regime's trials
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(FUZZ_TRIALS):
+        seed, regime = FUZZ_BASE + i, fuzz.REGIMES[i % len(fuzz.REGIMES)]
+        before = read_launches()
+        try:
+            info = fuzz.one_trial(seed, DEVICE, regime)
+        except AssertionError as exc:
+            require(False, f"fuzz seed {seed} ({regime}) differs from the oracle: {exc}; the draw: "
+                           f"{fuzz.describe(fuzz.draw(seed, regime))}")
+        if "skipped" in info:
+            skipped[seed] = info["skipped"]
+        else:
+            compared += 1
+            worst = {key: max(v, info[key]) for key, v in worst.items()}
+        took = {name: n - before[name] for name, n in read_launches().items() if n > before[name]}
+        for name, n in took.items():
+            by_regime[regime][name] = by_regime[regime].get(name, 0) + n
+        print(f"[fuzz] {i + 1}/{FUZZ_TRIALS} seed={seed} {regime}: {'skipped' if 'skipped' in info else 'ok'} "
+              f"{json.dumps(info)} launches {json.dumps(took)}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for name in KERNELS:
+        record(results, name, fuzz_launches=launches[name])
+    record(results, "merge", fuzz_partition_launches=launches["merge-partition"])
+    print("[fuzz] summary " + json.dumps({
+        "trials": FUZZ_TRIALS, "compared": compared, "skipped": len(skipped), "skipped_stats": skipped,
+        "launches": launches, "launches_by_regime": by_regime, "max_pi_rel": worst["pi_rel"],
+        "max_numreads_rel": worst["numreads_rel"], "seconds": round(seconds, 1), "card": smi}))
+    require(len(skipped) <= FUZZ_TRIALS // 10, f"fuzz: {len(skipped)} of {FUZZ_TRIALS} trials skipped: {skipped}")
+    idle = sorted(name for name, n in launches.items() if n == 0)
+    require(not idle, f"fuzz: kernels never launched in the phase: {idle}")
+    _heavy_read_batch(torch, smi)
+
+
+def _heavy_read_batch(torch, smi):
+    """A full batch (BATCH reads of 100 bp, k = 31, sketch fraction 0.9)
+    that holds one read from a 300-way shared core, ~24,000 events: that
+    read groups in a row slice of its own (rowmatch.match_runs), so the
+    batch's event rows stay as narrow as without it and its peak device
+    memory near the same batch's without it, below that plus the
+    [BATCH, W] int32 event row the heavy read would widen it to; the
+    tables equal the plain functions' and, but for the heavy read's,
+    the light batch's."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.index.artifact import to_device
+    from sketch_rna_tpu_torch.index.build import build_index
+    from sketch_rna_tpu_torch.match.bucket_lookup import probe_index_plain
+    from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort_plain, row_sort_wide
+    from sketch_rna_tpu_torch.pipeline import sketch_match_step
+    from sketch_rna_tpu_torch.sketch.fracminhash import sketch_all_k
+    from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
+
+    rng = np.random.default_rng(24)
+    seqs = synth_transcriptome(rng, 2000)
+    core = rng.integers(0, 4, 150).astype(np.uint8)
+    seqs += [np.concatenate([f[0], core, f[1]]) for f in rng.integers(0, 4, (300, 2, 30)).astype(np.uint8)]
+    config = QuantConfig(kmer_lengths=(31,), sketch_fraction=0.9)
+    index = to_device(build_index(_records(seqs, "T"), config, device=DEVICE), DEVICE)
+    codes, lengths = sample_reads(seqs[:2000], BATCH, 100, 128, seed=24)
+    heavy, heavy_lengths = codes.copy(), lengths.copy()
+    heavy[0], heavy_lengths[0] = 0, 120
+    heavy[0, :120] = core[:120]
+    caps = (config.sketch_capacity_for(31, 128),)
+    wide = []
+
+    def recording(x):
+        if x.shape[1] > MAX_WIDTH:
+            wide.append(tuple(x.shape))
+        return row_sort_wide(x)
+
+    def run(c, n, **kw):
+        c, n = torch.from_numpy(c).to(DEVICE), torch.from_numpy(n).to(DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = sketch_match_step(c, n, index, config, caps, **kw)
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base
+
+    light, light_peak = run(codes, lengths)
+    require(not wide, f"heavy-read batch: the light batch sorted rows past {MAX_WIDTH} lanes: {wide}")
+    got, peak = run(heavy, heavy_lengths, sort=recording)
+    want, _ = run(heavy, heavy_lengths, sketch=sketch_all_k, sort=row_sort_plain, lookup=probe_index_plain)
+    require(len(wide) == 1 and wide[0][0] == 1, f"heavy-read batch: rows past {MAX_WIDTH} lanes sorted as {wide}")
+    require(all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask")),
+            "heavy-read batch: kernel tables differ from the plain functions'")
+    require(all(torch.equal(getattr(got, f)[1:], getattr(light, f)[1:]) for f in ("tid", "score", "mask")),
+            "heavy-read batch: the other reads' tables differ from the light batch's")
+    unsliced = BATCH * wide[0][1] * 4
+    require(peak < light_peak + unsliced, f"heavy-read batch: peak {peak} B against {light_peak} B without the "
+                                          f"heavy read: the batch widened")
+    print("[fuzz] heavy-read batch " + json.dumps({
+        "reads": BATCH, "heavy_row": wide[0], "peak_bytes": peak,
+        "peak_bytes_without_it": light_peak, "unsliced_int32_row_bytes": unsliced,
+        "candidate_spilled": int(got.stats["candidate_spilled"]), "card": smi}))
+
+
 def phase_spill(torch, results):
     """Per-k table spill on the card: the batch regroups merged, equal to a
     forced merged run; the regroup's sort_event_parts runs the merge kernel."""
@@ -2381,6 +2517,7 @@ def main() -> int:
         "scale": lambda: phase_scale(torch, results, ctx),
         "scale-multik": lambda: phase_scale_multik(torch, results, ctx),
         "crosscheck": lambda: phase_crosscheck(torch, ctx),
+        "fuzz": lambda: phase_fuzz(torch, results, smi),
         "spill": lambda: phase_spill(torch, results),
         "long-reads": lambda: phase_long_reads(torch, results),
         "stream": lambda: phase_stream(torch, ctx),

@@ -67,15 +67,21 @@ from sketch_rna_tpu_torch.dist.mesh import Mesh
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex
 from sketch_rna_tpu_torch.io.packing import PackedReads
 from sketch_rna_tpu_torch.match.probe import probe
-from sketch_rna_tpu_torch.match.row_sort import row_sort
-from sketch_rna_tpu_torch.match.rowmatch import I32_MAX, MatchResult, row_events_to_candidates, row_expand_from_runs
+from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
+from sketch_rna_tpu_torch.match.rowmatch import (
+    I32_MAX,
+    MatchResult,
+    match_runs,
+    row_events_to_candidates,
+    row_expand_from_runs,
+)
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 
 log = logging.getLogger(__name__)
 
 # Counts that index-group peers hold identically (they match the same
 # reads): one peer contributes them to the mesh-wide sum.  expand_dropped
-# is per shard and sums over both axes.
+# (always 0) sums over both axes.
 _REPLICATED = ("sketch_overflow", "candidate_spilled", "candidate_spilled_per_k", "wide_spilled", "class_overflow",
                "num_mapped")
 
@@ -89,7 +95,7 @@ def match_batch_sharded(
     *,
     index_group=None,
     sketch=sketch_reads,
-    sort=row_sort,
+    sort=row_sort_wide,
 ) -> MatchResult:
     """One batch on one rank: pipeline.sketch_match_step against the
     rank's index shard, with the cross-shard event merge.
@@ -98,35 +104,37 @@ def match_batch_sharded(
     rows hold packed tid * K + k keys; a k's row has the same width on
     every rank (the group's largest per-read event total, pow2), so the
     gathered row splits back into ip x K parts that sort_event_parts
-    sorts and merges.  expand_dropped counts this shard's events only.
+    sorts and merges.  The group's per-read totals, all-reduced MAX, cut
+    the same row slices on every rank (match_runs).
     """
     ks = tuple(index.kmer_lengths)
     K = len(ks)
     sketches = sketch(codes, lengths, ks, config.sketch_fraction, sketch_caps)
     runs = [probe(h, m, index.per_k[k].keys, index.per_k[k].row_ptr) for (h, m, _), k in zip(sketches, ks)]
-    totals = [length.sum(dim=1) for _, length in runs]
-    # The batch's one host read: [largest per-read total per k | event
-    # total per k], the former all-reduced MAX over the index group.
-    sizes = read_max(torch.stack([t.max() for t in totals] + [t.sum() for t in totals]), K, index_group)
-    parts, dropped = [], []
-    for ki, ((start, length), k) in enumerate(zip(runs, ks)):
-        key, d = row_expand_from_runs(start, length, index.per_k[k].postings, sizes=(sizes[ki], sizes[K + ki]))
-        parts.append(torch.where(key != I32_MAX, key * K + ki, I32_MAX) if K > 1 else key)
-        dropped.append(d)
-    widths = [p.shape[1] for p in parts]
-    row = gather_lanes(torch.cat(parts, dim=1) if K > 1 else parts[0], index_group)
-    parts = list(torch.split(row, widths * (row.shape[1] // sum(widths)), dim=1))
-    res = row_events_to_candidates(
-        parts if len(parts) > 1 else parts[0],
-        num_k=K,
-        chain_fraction=config.chain_fraction,
-        candidate_capacity=config.candidate_capacity,
-        num_transcripts=index.num_transcripts,
-        sort=sort,
-    )
-    res.stats["candidate_spilled_per_k"] = torch.zeros((), dtype=torch.int64, device=res.tid.device)
+
+    def group(runs, sizes):
+        parts = []
+        for ki, ((start, length), k, size) in enumerate(zip(runs, ks, sizes)):
+            key = row_expand_from_runs(start, length, index.per_k[k].postings, sizes=size)
+            parts.append(torch.where(key != I32_MAX, key * K + ki, I32_MAX) if K > 1 else key)
+        widths = [p.shape[1] for p in parts]
+        row = gather_lanes(torch.cat(parts, dim=1) if K > 1 else parts[0], index_group)
+        parts = list(torch.split(row, widths * (row.shape[1] // sum(widths)), dim=1))
+        res = row_events_to_candidates(
+            parts if len(parts) > 1 else parts[0],
+            num_k=K,
+            chain_fraction=config.chain_fraction,
+            candidate_capacity=config.candidate_capacity,
+            num_transcripts=index.num_transcripts,
+            sort=sort,
+        )
+        res.stats["candidate_spilled_per_k"] = torch.zeros((), dtype=torch.int64, device=res.tid.device)
+        return res
+
+    # One host read a batch (more only when it is cut into slices).
+    res = match_runs(runs, config.batch_size, group, lambda x, n: read_max(x, n, index_group))
     res.stats["sketch_overflow"] = sum(ov for _, _, ov in sketches)
-    res.stats["expand_dropped"] = sum(dropped)
+    res.stats["expand_dropped"] = torch.zeros((), dtype=torch.int64, device=codes.device)
     return res
 
 

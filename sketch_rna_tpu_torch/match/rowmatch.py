@@ -13,11 +13,14 @@ as in sketch_rna_tpu/match/rowmatch.py:
 
 Shape on the GPU: each k's posting runs expand into one [B, W_k] row of
 tid keys per read, W_k the batch's largest per-read event total at k
-rounded up to a power of two, so nothing is dropped below
-EXPAND_RETRY_MAX.  A row sort (kernel K4) makes each tid's events
-adjacent; run counting is shifts and a cummax along the row; the top-C
-selection is one more K4 sort of packed (rank, tid) keys, int32 where
-they fit and int64 past that.  Several ks group per k into top-2C
+rounded up to a power of two, so no event is dropped; a batch that
+holds a read past 16384 events at some k groups in row slices
+(match_runs), so its rows hold no more lanes than a full batch at K4's
+widest.  A row sort (row_sort_wide: kernel K4, and past its 16384 lanes
+K4 over 16384-lane chunks and the merge kernel's rounds) makes each
+tid's events adjacent; run counting is shifts and a cummax along the
+row; the top-C selection is one more K4 sort of packed (rank, tid) keys,
+int32 where they fit and int64 past that.  Several ks group per k into top-2C
 tables that intersect (group_parts_per_k, the default), or as one merged
 K-wide row (the exact fallback when a per-k table spills).
 """
@@ -30,16 +33,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, merge_sorted_runs, row_sort
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, merge_sorted_runs, row_sort_wide
 
 I32_MAX = 2**31 - 1  # sentinel event key; sorts after every tid
-# Widest per-read event row of one k (the JAX engines' expansion retry
-# bound, and K4's widest row); events past it are counted as expand_dropped.
-EXPAND_RETRY_MAX = MAX_WIDTH
 # Sentinel of a (tid << 32) | score table lane: sorts after every real lane.
 _TABLE_SENTINEL = I32_MAX << 32
 
 Sort = Callable[[torch.Tensor], torch.Tensor]
+Read = Callable[[torch.Tensor, int], List[int]]
 
 
 @dataclasses.dataclass
@@ -74,14 +75,21 @@ def _fraction_compare_params(fraction: float) -> Tuple[int, int]:
     return 0, 0
 
 
-def event_sizes(lengths: Sequence[torch.Tensor]) -> List[Tuple[int, int]]:
+def _read_local(x: torch.Tensor, n: int) -> List[int]:
+    return x.tolist()
+
+
+def event_sizes(lengths: Sequence[torch.Tensor], read: Read = _read_local) -> List[Tuple[int, int]]:
     """(largest per-read event total, event total) of each k's [B, S]
-    posting-run lengths, read in one host sync for every k."""
+    posting-run lengths, read in one host sync for every k.  read(x, n):
+    x on the host, its first n entries all-reduced MAX over an index
+    group (dist.collectives.read_max); by default x as it is."""
+    K = len(lengths)
     if not lengths or lengths[0].shape[0] == 0:
-        return [(0, 0)] * len(lengths)
+        return [(0, 0)] * K
     totals = [length.sum(dim=1) for length in lengths]
-    flat = torch.stack([v for t in totals for v in (t.max(), t.sum())]).tolist()
-    return [(int(flat[2 * i]), int(flat[2 * i + 1])) for i in range(len(lengths))]
+    flat = read(torch.stack([t.max() for t in totals] + [t.sum() for t in totals]), K)
+    return [(int(flat[i]), int(flat[K + i])) for i in range(K)]
 
 
 def row_expand_from_runs(
@@ -89,23 +97,19 @@ def row_expand_from_runs(
     length: torch.Tensor,
     postings: torch.Tensor,
     *,
-    max_width: int = EXPAND_RETRY_MAX,
     sizes: Optional[Tuple[int, int]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expand posting runs [B, S] into one row of event keys per read.
-
-    Returns (key [B, W] int32: the tids of the read's events in probe
-    order, INT32_MAX past them; n_dropped [] int64: events past
-    max_width).  W = pow2ceil(largest per-read total), at least 2 and at
-    most max_width.  sizes: this k's event_sizes entry; without it one
-    host sync reads it.
+) -> torch.Tensor:
+    """Expand posting runs [B, S] into one row of event keys per read:
+    key [B, W] int32, the tids of the read's events in probe order,
+    INT32_MAX past them.  W = pow2ceil(largest per-read total), at least
+    2, so no event is dropped (the JAX engines stop at 16384 and count
+    the rest as expand_dropped; match_runs bounds the port's rows).
+    sizes: this k's event_sizes entry; without it one host sync reads it.
     """
     B, S = start.shape
-    total = length.sum(dim=1)
     max_ev, n_ev = sizes if sizes is not None else event_sizes([length])[0]
-    W = min(max(pow2ceil(max_ev), MIN_WIDTH), max_width)
+    W = max(pow2ceil(max_ev), MIN_WIDTH)
     key = torch.full((B, W), I32_MAX, dtype=torch.int32, device=start.device)
-    n_dropped = torch.clamp(total - W, min=0).sum()
     if n_ev:
         lens = length.reshape(-1)
         runs = torch.arange(B * S, device=start.device)
@@ -115,13 +119,60 @@ def row_expand_from_runs(
         first_event = torch.cumsum(lens, 0) - lens
         within = torch.arange(n_ev, device=start.device) - first_event[run]
         col = (torch.cumsum(length, dim=1) - length).reshape(-1)[run] + within
-        tid = postings[start.reshape(-1)[run] + within]
-        row = run // S
-        if max_ev > W:
-            keep = col < W
-            row, col, tid = row[keep], col[keep], tid[keep]
-        key[row, col] = tid
-    return key, n_dropped
+        key[run // S, col] = postings[start.reshape(-1)[run] + within]
+    return key
+
+
+def row_slices(most: Sequence[int], batch_size: int) -> List[List[int]]:
+    """A batch's rows in slices whose event rows hold no more lanes a k
+    than a full batch at K4's widest row (batch_size x MAX_WIDTH): the
+    rows whose events fit MAX_WIDTH lanes as one slice, then the wider
+    ones, narrowest first, as many a slice as that holds (at least one).
+    most: each row's largest per-k event total."""
+    narrow = [i for i, m in enumerate(most) if m <= MAX_WIDTH]
+    wide = sorted((i for i, m in enumerate(most) if m > MAX_WIDTH), key=lambda i: most[i])
+    slices = [narrow] if narrow else []
+    while wide:
+        n = 1  # the slice's width is its last (widest) row's
+        while n < len(wide) and (n + 1) * pow2ceil(most[wide[n]]) <= batch_size * MAX_WIDTH:
+            n += 1
+        slices.append(wide[:n])
+        wide = wide[n:]
+    return slices
+
+
+def match_runs(
+    runs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    batch_size: int,
+    group: Callable[[Sequence[Tuple[torch.Tensor, torch.Tensor]], List[Tuple[int, int]]], MatchResult],
+    read: Read = _read_local,
+) -> MatchResult:
+    """Group one batch's posting runs ((start, length) [B, S] per k) by
+    group(runs, sizes), sizes each k's event_sizes entry.  When a read's
+    events pass MAX_WIDTH lanes at some k, the batch groups in
+    row_slices, so its event rows stay as narrow as a full batch's at
+    K4's widest row without dropping an event; the slices' tables and
+    stats come back as one batch's.  read: as in event_sizes (every rank
+    of an index group then cuts the same slices)."""
+    sizes = event_sizes([length for _, length in runs], read)
+    if max(m for m, _ in sizes) <= MAX_WIDTH:
+        return group(runs, sizes)
+    B = runs[0][0].shape[0]
+    most = read(torch.stack([length.sum(dim=1) for _, length in runs]).amax(dim=0), B)
+    slices, results = row_slices(most, batch_size), []
+    for rows in slices:
+        idx = torch.tensor(rows, device=runs[0][0].device)
+        part = [(start[idx], length[idx]) for start, length in runs]
+        results.append(group(part, event_sizes([length for _, length in part], read)))
+    first = results[0]
+    out = MatchResult(*(torch.zeros((B,) + r.shape[1:], dtype=r.dtype, device=r.device)
+                        for r in (first.tid, first.score, first.mask)),
+                      stats={key: sum(r.stats[key] for r in results) for key in first.stats},
+                      lanes=sum(r.lanes for r in results))
+    for rows, r in zip(slices, results):
+        idx = torch.tensor(rows, device=r.tid.device)
+        out.tid[idx], out.score[idx], out.mask[idx] = r.tid, r.score, r.mask
+    return out
 
 
 def _smallest(keys: torch.Tensor, C: int, sort: Sort) -> torch.Tensor:
@@ -183,15 +234,17 @@ def _shift_left(x: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.nn.functional.pad(x[:, 1:], (0, 1), value=fill)
 
 
-def sort_event_parts(parts: Sequence[torch.Tensor], sort: Sort = row_sort) -> torch.Tensor:
+def sort_event_parts(parts: Sequence[torch.Tensor], sort: Sort = row_sort_wide) -> torch.Tensor:
     """Sort per-k [B, w_k] event-key parts into one ascending row.
 
     The parts pad with sentinels to a common power-of-two width and a
-    power-of-two count and lie side by side in each row; one K4 launch
-    sorts every part, and rounds of the merge kernel (as the JAX package
+    power-of-two count and lie side by side in each row; one sort of
+    every part, then rounds of the merge kernel (as the JAX package
     merges outside any kernel) combine neighbouring parts, so the merged
     row may exceed K4's widest.  The row holds the parts' keys plus
-    sentinels, fully sorted."""
+    sentinels, fully sorted.  With the plain sort the parts sort plainly
+    and the merge rounds still run the merge kernel on a CUDA tensor
+    (chip_smoke checks that kernel alone)."""
     if len(parts) == 1:
         return sort(parts[0])
     B = parts[0].shape[0]
@@ -209,14 +262,15 @@ def row_events_to_candidates(
     chain_fraction: float,
     candidate_capacity: int,
     num_transcripts: int,
-    sort: Sort = row_sort,
+    sort: Sort = row_sort_wide,
 ) -> MatchResult:
     """Group event keys row-wise into per-read top-C candidates.
 
     keym: [B, W] int32 keys (INT32_MAX = empty, any lane order), tids
     when num_k == 1 and packed tid*K + k otherwise — or a list of per-k
     [B, w] parts, which sort_event_parts sorts and merges.
-    sort: the row sort; K4 by default, its plain version to check it.
+    sort: the row sort of any power-of-two width; row_sort_wide by
+    default, its plain version (row_sort_plain) to check it.
     """
     K = num_k
     if num_transcripts * K >= I32_MAX:
@@ -288,7 +342,7 @@ def combine_k_tables(
     candidate_capacity: int,
     score_bound: int,
     num_transcripts: int,
-    sort: Sort = row_sort,
+    sort: Sort = row_sort_wide,
 ) -> MatchResult:
     """Intersect K per-k top tables into the all-k candidates.
 
@@ -343,7 +397,7 @@ def group_parts_per_k(
     chain_fraction: float,
     candidate_capacity: int,
     num_transcripts: int,
-    sort: Sort = row_sort,
+    sort: Sort = row_sort_wide,
 ) -> MatchResult:
     """Group K > 1 per-k [B, W_k] tid event rows: each k groups alone
     into a top-Ck table, Ck = min(2C, W_k) (W_k lanes hold at most W_k
@@ -384,7 +438,7 @@ def group_event_parts(
     candidate_capacity: int,
     num_transcripts: int,
     per_k_tables: bool = True,
-    sort: Sort = row_sort,
+    sort: Sort = row_sort_wide,
 ) -> MatchResult:
     """Group per-k [B, W_k] tid event rows into top-C candidates (the JAX
     package's _group_tier_parts): one k groups directly; several ks per k

@@ -47,11 +47,11 @@ from sketch_rna_tpu_torch.em.em import assign_reads_tables, em_route, run_em_tab
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex, IndexArtifact
 from sketch_rna_tpu_torch.io.packing import PackedReads
 from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
-from sketch_rna_tpu_torch.match.row_sort import row_sort
+from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
 from sketch_rna_tpu_torch.match.rowmatch import (
     MatchResult,
-    event_sizes,
     group_event_parts,
+    match_runs,
     pow2ceil,
     row_expand_from_runs,
 )
@@ -178,40 +178,44 @@ def sketch_match_step(
     sketch_caps: Sequence[int],
     *,
     sketch: Callable = sketch_reads,
-    sort: Callable[[torch.Tensor], torch.Tensor] = row_sort,
+    sort: Callable[[torch.Tensor], torch.Tensor] = row_sort_wide,
     lookup: Callable = probe_index,
 ) -> MatchResult:
     """One batch: sketch every k of the index, probe each k's bucket
     table, expand, group into top-C candidates (config.match_per_k_tables
-    picks the K > 1 mode).
+    picks the K > 1 mode); a read past 16384 events at some k groups in
+    a row slice of its own (match_runs).
 
-    sketch / sort / lookup: the kernels by default (sketch_reads, K4, the
-    bucket probe P); their plain versions (sketch_all_k, row_sort_plain,
+    sketch / sort / lookup: the kernels by default (sketch_reads, K4 and
+    past its widest row the merge kernel, the bucket probe P); their
+    plain versions (sketch_all_k, row_sort_plain,
     bucket_lookup.probe_index_plain) check them on the same batch.
     lookup(hashes, mask, DeviceKIndex) -> (start, length).
-    Stats: sketch_overflow and expand_dropped summed over ks,
-    candidate_spilled, candidate_spilled_per_k.
+    Stats: sketch_overflow summed over ks, candidate_spilled,
+    candidate_spilled_per_k, and expand_dropped, always 0 (the JAX
+    engines' key: the port drops no event).
     """
     ks = tuple(index.kmer_lengths)
     sketches = sketch(codes, lengths, ks, config.sketch_fraction, sketch_caps)
     runs = [lookup(h, m, index.per_k[k]) for (h, m, _), k in zip(sketches, ks)]
-    sizes = event_sizes([length for _, length in runs])  # the batch's one host sync
-    parts, dropped = [], []
-    for (start, length), k, size in zip(runs, ks, sizes):
-        key, d = row_expand_from_runs(start, length, index.per_k[k].postings, sizes=size)
-        parts.append(key)
-        dropped.append(d)
-    res = group_event_parts(
-        parts,
-        chain_fraction=config.chain_fraction,
-        candidate_capacity=config.candidate_capacity,
-        num_transcripts=index.num_transcripts,
-        per_k_tables=config.match_per_k_tables,
-        sort=sort,
-    )
+
+    def group(runs, sizes):
+        parts = [row_expand_from_runs(start, length, index.per_k[k].postings, sizes=size)
+                 for (start, length), k, size in zip(runs, ks, sizes)]
+        res = group_event_parts(
+            parts,
+            chain_fraction=config.chain_fraction,
+            candidate_capacity=config.candidate_capacity,
+            num_transcripts=index.num_transcripts,
+            per_k_tables=config.match_per_k_tables,
+            sort=sort,
+        )
+        res.lanes = sum(key.numel() for key in parts)
+        return res
+
+    res = match_runs(runs, config.batch_size, group)
     res.stats["sketch_overflow"] = sum(ov for _, _, ov in sketches)
-    res.stats["expand_dropped"] = sum(dropped)
-    res.lanes = sum(key.numel() for key in parts)
+    res.stats["expand_dropped"] = torch.zeros((), dtype=torch.int64, device=codes.device)
     return res
 
 

@@ -2,7 +2,9 @@
 
   - a k whose windows fit the fused kernels (nk_pad <= 1024, reads up to
     ~1 kb): K1 when it is the batch's only such k, else one K2 launch for
-    all of them;
+    all of them; past MAX_KS such ks (the kernel's kMaxKs), one launch a
+    group of MAX_KS ks in the caller's k order, a last group of one k
+    taking K1 (nine ks: K2 for eight, K1 for the ninth);
   - a longer k, of any length: K3 compacts each read's kept windows
     (~5% of them), and dedup_select's two row sorts run over those alone,
     padded to m_pad = max(2, pow2ceil(the slice's most kept hashes)): K4
@@ -20,7 +22,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
-from sketch_rna_tpu_torch.hash.sketch_kernel import MAX_WINDOWS, fused_sketch, fused_sketch_multik, window_pad
+from sketch_rna_tpu_torch.hash.sketch_kernel import MAX_KS, MAX_WINDOWS, fused_sketch, fused_sketch_multik, window_pad
 from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
 from sketch_rna_tpu_torch.sketch.fracminhash import dedup_select
 from sketch_rna_tpu_torch.utils.roofline import kept_work, sketch_work
@@ -48,13 +50,22 @@ def _sketch_long(codes: torch.Tensor, lengths: torch.Tensor, k: int, fraction: f
     return torch.cat(hashes), torch.cat(masks), sum(overflow)
 
 
+def fused_groups(L: int, ks: Sequence[int]) -> List[List[int]]:
+    """Positions in ks of the ks that fit the fused kernels at width L,
+    one list a launch: groups of MAX_KS in the caller's k order, the
+    last one the rest."""
+    fused = [i for i, k in enumerate(ks) if window_pad(L, k) <= MAX_WINDOWS]
+    return [fused[i : i + MAX_KS] for i in range(0, len(fused), MAX_KS)]
+
+
 def sketch_ops(B: int, L: int, ks: Sequence[int]) -> int:
     """Integer operations of sketch_reads on [B, L] reads at ks, by the
-    rules of utils/roofline.py: one fused launch reads the codes once for
+    rules of utils/roofline.py: each fused launch reads the codes once for
     all its ks (sketch_work), K3 once a k (kept_work)."""
-    fused = [k for k in ks if window_pad(L, k) <= MAX_WINDOWS]
-    ops = sketch_work(B, L, fused, [0] * len(fused))[1] if fused else 0
-    return ops + sum(kept_work(B, L, k, 0)[1] for k in ks if k not in fused)
+    groups = fused_groups(L, ks)
+    ops = sum(sketch_work(B, L, [ks[i] for i in g], [0] * len(g))[1] for g in groups)
+    fused = {i for g in groups for i in g}
+    return ops + sum(kept_work(B, L, k, 0)[1] for i, k in enumerate(ks) if i not in fused)
 
 
 def sketch_reads(
@@ -66,17 +77,18 @@ def sketch_reads(
 ) -> List[Sketch]:
     """[(hashes, mask, n_overflow)] per k of a padded [B, L] read batch."""
     L = codes.shape[1]
-    pads = [window_pad(L, k) for k in ks]
     out = [None] * len(ks)
-    fused = [i for i, p in enumerate(pads) if p <= MAX_WINDOWS]
-    if len(fused) == 1:
-        (i,) = fused
-        out[i] = fused_sketch(codes, lengths, ks[i], fraction, caps[i])
-    elif fused:
-        for i, res in zip(fused, fused_sketch_multik(codes, lengths, [ks[i] for i in fused], fraction,
-                                                     [caps[i] for i in fused])):
+    groups = fused_groups(L, ks)
+    for group in groups:
+        if len(group) == 1:
+            (i,) = group
+            out[i] = fused_sketch(codes, lengths, ks[i], fraction, caps[i])
+            continue
+        for i, res in zip(group, fused_sketch_multik(codes, lengths, [ks[i] for i in group], fraction,
+                                                     [caps[i] for i in group])):
             out[i] = res
-    for i, p in enumerate(pads):
-        if p > MAX_WINDOWS:
-            out[i] = _sketch_long(codes, lengths, ks[i], fraction, caps[i], p)
+    fused = {i for g in groups for i in g}
+    for i, k in enumerate(ks):
+        if i not in fused:
+            out[i] = _sketch_long(codes, lengths, k, fraction, caps[i], window_pad(L, k))
     return out

@@ -9,7 +9,9 @@ job's result to a temp dir and each check below is its own test.
 
 Inputs come from numpy seeds: an isoform-family transcriptome indexed by
 the JAX package, reads sampled with errors.  Problems: one k (31), two ks
-(21, 31), and a class buffer small enough to compact and drain.
+(21, 31), a class buffer small enough to compact and drain, and a core
+that 600 transcripts share, whose reads pass 16,384 events at sketch
+fraction 0.9.
 Tolerances: float64 pi and weighted counts within 1e-9 relative of
 quantify (summation order differs across shards; docs/PARITY.md
 deviation 6 allows 5e-9) and of the JAX sharded engine on the 8 virtual
@@ -41,7 +43,8 @@ from sketch_rna_tpu_torch.dist.mesh import make_mesh
 from sketch_rna_tpu_torch.index.artifact import load_index, to_device
 from sketch_rna_tpu_torch.index.shard import shard_to_device
 from sketch_rna_tpu_torch.io.packing import PackedReads
-from sketch_rna_tpu_torch.pipeline import match_rows, quantify, quantify_sharded
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH
+from sketch_rna_tpu_torch.pipeline import collect_pairs, match_rows, quantify, quantify_sharded
 
 from torch_dist_worker import free_port
 from util import decode, make_transcriptome, sample_reads
@@ -58,7 +61,13 @@ PROBLEMS = {
                dict(kmer_lengths=(21, 31), batch_size=64, candidate_capacity=32)),
     "drain": (910009, 20, (60, 700), 500, 70, 0.02,
               dict(kmer_lengths=(21,), batch_size=32, stream_class_capacity=64, stream_chunk_reads=32)),
+    "heavy": (160, 10, (60, 400), 120, 100, 0.005,
+              dict(kmer_lengths=(31,), batch_size=64, sketch_fraction=0.9, candidate_capacity=1024)),
 }
+# problem -> (copies, length) of a core that many transcripts share: its
+# reads pass 16,384 events, so their batches group in row slices
+# (rowmatch.match_runs), cut alike on every rank of an index group.
+SHARED_CORES = {"heavy": (600, 150)}
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2), (1, 4)]}
 ALL_MESHES = [m for ms in MESHES.values() for m in ms]
 
@@ -84,8 +93,13 @@ def problems(tmp_path_factory):
     for name, (seed, n_tx, len_range, n_reads, read_len, err, knobs) in PROBLEMS.items():
         rng = np.random.default_rng(seed)
         seqs = make_transcriptome(rng, n=n_tx, len_range=len_range)
+        if name in SHARED_CORES:
+            copies, length = SHARED_CORES[name]
+            core = rng.integers(0, 4, size=length).astype(np.uint8)
+            seqs += [np.concatenate([f[0], core, f[1]]) for f in rng.integers(0, 4, (copies, 2, 30)).astype(np.uint8)]
         recs = JaxRecords([f"T{i}" for i in range(len(seqs))], [decode(s) for s in seqs], 0)
-        idx = jax_build_index(recs, JaxConfig(kmer_lengths=knobs["kmer_lengths"]))
+        idx = jax_build_index(recs, JaxConfig(kmer_lengths=knobs["kmer_lengths"],
+                                              sketch_fraction=knobs.get("sketch_fraction", 0.05)))
         reads = [r for r in sample_reads(rng, seqs, n_reads=n_reads, read_len=read_len, error_rate=err)
                  if r.size >= max(knobs["kmer_lengths"])]
         codes, lens = _pack(reads)
@@ -198,6 +212,16 @@ def test_sharded_equals_quantify(runs, single, mesh, problem):
         _assert_equals_quantify(got, single[problem])
         stats = json.loads(str(got["stats"]))
         assert all(key in stats for key in LOSS)
+
+
+def test_heavy_problem_passes_the_widest_row(problems):
+    """The heavy problem's core reads pass K4's widest row: a read's
+    candidate scores (its events, less those of tids under the chain
+    threshold) sum past 16,384."""
+    idx, _, codes, lens, _, knobs = problems["heavy"]
+    read, _, score, stats = collect_pairs(to_device(idx, "cpu"), PackedReads(codes, lens, []), QuantConfig(**knobs))
+    assert np.bincount(read, weights=score).max() > MAX_WIDTH
+    assert stats == {"sketch_overflow": 0, "expand_dropped": 0, "candidate_spilled": 0}
 
 
 @pytest.mark.parametrize("mesh", ALL_MESHES, ids=_tag)

@@ -28,18 +28,24 @@ for name in names:
 assert {"sketch_rna_tpu_torch.dist.quant_stream", "sketch_rna_tpu_torch.dist.collectives",
         "sketch_rna_tpu_torch.utils.profiling", "sketch_rna_tpu_torch.index.shard",
         "sketch_rna_tpu_torch.oracle.reference_oracle", "sketch_rna_tpu_torch.match.candidates",
-        "sketch_rna_tpu_torch.utils.roofline"} <= set(names), names
+        "sketch_rna_tpu_torch.utils.roofline", "sketch_rna_tpu_torch.oracle.fuzz"} <= set(names), names
 sys.argv = ["chip_smoke.py"]
 import chip_smoke
+# every kernel wrapper's launch count exists from import on, at 0
+assert all(getattr(obj, attr) == 0 for obj, attr in chip_smoke.counters().values()), chip_smoke.counters()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu", "triton"))
 assert not bad, bad
 print("PORT-IMPORT-CLEAN")
 """
 
 
+# The port's scripts, which run on the machine with the GPU.
+_SCRIPTS = [os.path.join(_REPO, "scripts", n) for n in ("fuzz_oracle_torch.py", "evaluate_accuracy_torch.py")]
+
+
 def _sources():
-    """Every Python source of the port, and chip_smoke.py."""
-    out = [os.path.join(_REPO, "chip_smoke.py")]
+    """Every Python source of the port, chip_smoke.py and the port's scripts."""
+    out = [os.path.join(_REPO, "chip_smoke.py")] + _SCRIPTS
     for root, _, names in os.walk(os.path.join(_REPO, "sketch_rna_tpu_torch")):
         out += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return out
@@ -51,6 +57,7 @@ def test_port_sources_name_no_jax_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sketch_rna_tpu)(\.|\s|$)", re.M)
     sources = _sources()
     assert len(sources) > 30 and any(p.endswith(os.path.join("dist", "mesh.py")) for p in sources)
+    assert all(os.path.exists(p) for p in _SCRIPTS)
     for path in sources:
         with open(path) as fh:
             hits = pattern.findall(fh.read())
@@ -72,7 +79,8 @@ def test_port_imports_no_jax():
 
 
 # The modules that carry the JAX package's oracle, global-sort matcher,
-# roofline and 8-bit chunk feed: each alone, in a fresh interpreter.
+# roofline, 8-bit chunk feed and oracle fuzz: each alone, in a fresh
+# interpreter.
 _ALONE = """
 import importlib, sys
 importlib.import_module(sys.argv[1])
@@ -83,10 +91,39 @@ print("ALONE-CLEAN")
 
 
 @pytest.mark.parametrize("module", ["sketch_rna_tpu_torch.oracle", "sketch_rna_tpu_torch.match.candidates",
-                                    "sketch_rna_tpu_torch.utils.roofline", "sketch_rna_tpu_torch.io.native"])
+                                    "sketch_rna_tpu_torch.utils.roofline", "sketch_rna_tpu_torch.io.native",
+                                    "sketch_rna_tpu_torch.oracle.fuzz"])
 def test_new_module_alone_imports_no_jax(module):
     env = dict(os.environ, PYTHONPATH=_REPO)
     out = subprocess.run([sys.executable, "-c", _ALONE, module], env=env, capture_output=True, timeout=300,
                          cwd=_REPO)
     assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
     assert "ALONE-CLEAN" in out.stdout.decode()
+
+
+# Each script run in a fresh interpreter on the CPU at a tiny size: it
+# works without JAX, and running it imports none.
+_SCRIPT_RUN = """
+import runpy, sys
+path, args = sys.argv[1], sys.argv[2:]
+sys.argv = [path] + args
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as exc:
+    assert not exc.code, exc.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu"))
+assert not bad, bad
+print("SCRIPT-CLEAN")
+"""
+
+
+@pytest.mark.parametrize("script,args", [
+    ("fuzz_oracle_torch.py", ["1", "--device", "cpu"]),
+    ("evaluate_accuracy_torch.py", ["--transcripts", "20", "--reads", "300", "--device", "cpu"]),
+], ids=["fuzz", "accuracy"])
+def test_script_runs_without_jax(script, args):
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_RUN, os.path.join(_REPO, "scripts", script)] + args,
+                         env=env, capture_output=True, timeout=300, cwd=_REPO)
+    assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
+    assert "SCRIPT-CLEAN" in out.stdout.decode()

@@ -1,5 +1,6 @@
 """Plain versions of kernels K2, K3 and K4-int64 against the JAX package,
-and the long-read route's sort widths.
+the long-read route's sort widths, and sketch_reads' grouping of ks into
+fused launches (at most MAX_KS ks a K2 launch).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the
 Pallas kernels run in interpret mode.  Integer outputs must be bit-equal.
@@ -22,6 +23,7 @@ from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort, row_sort_wi
 from sketch_rna_tpu_torch.sketch import dispatch
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 from sketch_rna_tpu_torch.sketch.fracminhash import SENTINEL, hash_kept, kept_width, sketch_batch
+from sketch_rna_tpu_torch.utils.roofline import kept_work, sketch_work
 
 FRACTION = 0.05
 KS = (21, 31)
@@ -185,3 +187,41 @@ def test_sketch_reads_refuses_past_k4_width():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="K3"):
         fused_sketch(codes, lengths, 31, FRACTION, 64)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 9, 12, 16, 17])
+def test_fused_groups_split_ks_in_order(n):
+    """sketch_reads' fused launches: groups of MAX_KS ks in the caller's
+    k order, the last one the rest (one k: K1); a k past the fused
+    kernels' windows takes no group."""
+    ks = tuple(range(11, 11 + 2 * n, 2))
+    groups = dispatch.fused_groups(104, ks)
+    assert [i for g in groups for i in g] == list(range(n))
+    assert [len(g) for g in groups] == [dispatch.MAX_KS] * (n // dispatch.MAX_KS) + [n % dispatch.MAX_KS] * (
+        n % dispatch.MAX_KS > 0)
+    assert dispatch.fused_groups(1200, ks + (31,)) == []  # 1,170 windows: K3 for every k
+
+
+def test_sketch_reads_nine_ks_equals_per_k():
+    """Nine ks on the CPU (on the card K2 for eight, K1 for the ninth):
+    each k's sketch is sketch_batch's alone."""
+    ks = (11, 13, 15, 17, 19, 21, 23, 25, 27)
+    codes, lengths = _batch(9, 104, k=27)
+    caps = [QuantConfig().sketch_capacity_for(k, 104) for k in ks]
+    got = sketch_reads(torch.from_numpy(codes), torch.from_numpy(lengths), ks, FRACTION, caps)
+    for (h, m, ov), k, cap in zip(got, ks, caps):
+        want = sketch_batch(torch.from_numpy(codes), torch.from_numpy(lengths), k, FRACTION, cap)
+        assert torch.equal(h, want[0]) and torch.equal(m, want[1]) and int(ov) == int(want[2])
+
+
+def test_sketch_ops_counts_a_code_read_per_launch():
+    """sketch_ops (QuantResult.sizes' hash_ops) counts each fused launch's
+    code read once: nine ks are the two launches' work (eight ks and
+    one), two ks one's."""
+    ks = (11, 13, 15, 17, 19, 21, 23, 25, 27)
+    def launch(group):
+        return sketch_work(8192, 104, group, [0] * len(group))[1]
+
+    assert dispatch.sketch_ops(8192, 104, ks) == launch(ks[:8]) + launch(ks[8:]) > launch(ks)
+    assert dispatch.sketch_ops(8192, 104, KS) == launch(KS)
+    assert dispatch.sketch_ops(8192, 2000, KS) == sum(kept_work(8192, 2000, k, 0)[1] for k in KS)
