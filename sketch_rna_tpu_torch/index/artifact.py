@@ -19,6 +19,7 @@ upload's seconds, tables included, are set-up (`upload_s`).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -41,6 +42,15 @@ class KIndex:
     @property
     def num_keys(self) -> int:
         return int(self.keys.shape[0])
+
+    def sha256(self) -> str:
+        """Hex sha256 over keys (uint32) | row_ptr (int32) | postings
+        (int32), each little-endian as the artifact stores them: equal
+        digests, bit-equal indexes."""
+        h = hashlib.sha256()
+        for a, dtype in ((self.keys, "<u4"), (self.row_ptr, "<i4"), (self.postings, "<i4")):
+            h.update(np.ascontiguousarray(a, dtype=dtype).tobytes())
+        return h.hexdigest()
 
 
 @dataclasses.dataclass

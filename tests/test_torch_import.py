@@ -31,6 +31,7 @@ assert {"sketch_rna_tpu_torch.dist.quant_stream", "sketch_rna_tpu_torch.dist.col
         "sketch_rna_tpu_torch.utils.roofline", "sketch_rna_tpu_torch.oracle.fuzz"} <= set(names), names
 sys.argv = ["chip_smoke.py"]
 import chip_smoke
+import bench_torch
 # every kernel wrapper's launch count exists from import on, at 0
 assert all(getattr(obj, attr) == 0 for obj, attr in chip_smoke.counters().values()), chip_smoke.counters()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu", "triton"))
@@ -40,12 +41,14 @@ print("PORT-IMPORT-CLEAN")
 
 
 # The port's scripts, which run on the machine with the GPU.
-_SCRIPTS = [os.path.join(_REPO, "scripts", n) for n in ("fuzz_oracle_torch.py", "evaluate_accuracy_torch.py")]
+_SCRIPTS = [os.path.join(_REPO, "scripts", n) for n in ("fuzz_oracle_torch.py", "evaluate_accuracy_torch.py",
+                                                        "scale_check_torch.py", "make_fastq_torch.py")]
 
 
 def _sources():
-    """Every Python source of the port, chip_smoke.py and the port's scripts."""
-    out = [os.path.join(_REPO, "chip_smoke.py")] + _SCRIPTS
+    """Every Python source of the port, chip_smoke.py, bench_torch.py and
+    the port's scripts."""
+    out = [os.path.join(_REPO, "chip_smoke.py"), os.path.join(_REPO, "bench_torch.py")] + _SCRIPTS
     for root, _, names in os.walk(os.path.join(_REPO, "sketch_rna_tpu_torch")):
         out += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return out
@@ -120,9 +123,12 @@ print("SCRIPT-CLEAN")
 @pytest.mark.parametrize("script,args", [
     ("fuzz_oracle_torch.py", ["1", "--device", "cpu"]),
     ("evaluate_accuracy_torch.py", ["--transcripts", "20", "--reads", "300", "--device", "cpu"]),
-], ids=["fuzz", "accuracy"])
-def test_script_runs_without_jax(script, args):
+    ("scale_check_torch.py", ["--transcripts", "60", "--reads", "500", "--device", "cpu", "--cache-dir", "{tmp}"]),
+    ("make_fastq_torch.py", ["{tmp}/reads.fq", "--transcripts", "60", "--reads", "500", "--chunk", "200"]),
+], ids=["fuzz", "accuracy", "scale-check", "make-fastq"])
+def test_script_runs_without_jax(script, args, tmp_path):
     env = dict(os.environ, PYTHONPATH=_REPO)
+    args = [a.replace("{tmp}", str(tmp_path)) for a in args]
     out = subprocess.run([sys.executable, "-c", _SCRIPT_RUN, os.path.join(_REPO, "scripts", script)] + args,
                          env=env, capture_output=True, timeout=300, cwd=_REPO)
     assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
