@@ -269,6 +269,34 @@ def load_gencode_index(path: Path, ks):
     return artifact, None
 
 
+def cached_index(n_transcripts: int, ks, device, cache_dir: Path = SCALE_CACHE):
+    """(the index artifact of gencode_transcriptome(n_transcripts) at ks,
+    that transcriptome, where the index came from): read from cache_dir's
+    T<N>_k<ks>.npz (at the GENCODE scale only if it equals the JAX
+    package's build, load_gencode_index), else built on `device` and
+    saved there."""
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.index.artifact import load_index, save_index
+    from sketch_rna_tpu_torch.index.build import build_index
+    from sketch_rna_tpu_torch.utils.synth import GENCODE_TRANSCRIPTS, fasta_records, gencode_transcriptome
+
+    seqs = gencode_transcriptome(n_transcripts)
+    path = Path(cache_dir) / f"T{n_transcripts}_k{'_'.join(map(str, ks))}.npz"
+    if path.exists():
+        if n_transcripts != GENCODE_TRANSCRIPTS:
+            return load_index(str(path)), seqs, f"index loaded from cache {path}"
+        artifact, why = load_gencode_index(path, ks)
+        if artifact is not None:
+            return artifact, seqs, f"index loaded from cache {path}"
+        print(f"not using the cache: {why}", file=sys.stderr)
+    t0 = time.perf_counter()
+    artifact = build_index(fasta_records(seqs), QuantConfig(kmer_lengths=tuple(ks)), device=device)
+    built = time.perf_counter() - t0
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_index(str(path), artifact)
+    return artifact, seqs, f"index built on {device} in {built:.1f}s"
+
+
 def config0_index_build(device) -> dict:
     """c0: the GENCODE-scale index build (k = 31) on the device, timed
     from the records to the host arrays."""

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                    # from the repository root; needs one card
     python3 chip_smoke.py --phases kernels   # a subset (device and build always run)
-    python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's shared functions timed beside these
+    python3 chip_smoke.py --phases kernels --parent DIR   # + DIR's shared functions timed beside these,
+                                                          # by this tree's utils/profiling.py on both sides
     python3 chip_smoke.py --phases shared-shapes         # only the shared functions' times, as JSON
     python3 chip_smoke.py --phases merge     # the merge kernel alone: its checks and times
 
@@ -168,6 +169,27 @@ without printing its result line:
                 CSV equal to an in-process quantify_streamed of the same
                 codes;
                 K1, K2, K3, K4, K4-int64 and P each launched in the phase;
+  stages        the first per-stage device profile at GENCODE width,
+                through the profile scripts' functions
+                (scripts/profile_*_torch.py) on gencode's transcriptome,
+                indexes and reads (built as gencode builds them when that
+                phase did not run): every stage of sketch_match_step on
+                the first [8192, 152] batch at k = 31 and ks (21, 31),
+                the chained stages equal to the whole step and the
+                kernel route equal to the plain route (sketch_all_k,
+                row_sort_plain, probe_index_plain); one EM iteration, its
+                E- and M-step and the assignment at each quant's class
+                table; t(21) + t(31) against t(21, 31) per stage and the
+                merged grouping's sort both ways (bit-equal); the
+                posterior-sum strategies on the k = 31 class table (each
+                within 1e-12 of index_add_, S bit-stable and equal to
+                segsum_plain); the host feed of a 2,097,152-read FASTQ;
+                then one fused 2^20-read float64 quant at k = 31 under
+                torch.profiler: untraced and traced wall time, the
+                card's busy and idle share, the 15 largest operations'
+                device ms, launches and host operations per batch (K1,
+                K4 and P launched); one "[stages] {json}" line with the
+                card's name and power limit;
   samples       examples/sample.{fa,fq}: refbin and npz indexes, a
                 two-sample quant with --tpm (TPM = numpy recompute), and an
                 EM checkpoint stopped after 2 iterations and resumed, equal
@@ -210,6 +232,32 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# The timing helpers' file, when the tree under test runs this script in a
+# parent checkout (parent_times): both trees are then timed by one copy.
+TIMING_ENV = "CHIP_SMOKE_TIMING"
+
+
+def timing_helpers():
+    """utils/profiling.py: the file TIMING_ENV names, loaded by its path
+    (a parent checkout may predate it or hold another copy), else this
+    checkout's."""
+    path = os.environ.get(TIMING_ENV)
+    if not path:
+        from sketch_rna_tpu_torch.utils import profiling
+
+        return profiling
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_timing", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_timing = timing_helpers()
+REPS, busy_share, counters, cuda_events, device_ms, launch_split_ms, read_launches, reset_launches = (
+    getattr(_timing, name) for name in ("REPS", "busy_share", "counters", "cuda_events", "device_ms",
+                                        "launch_split_ms", "read_launches", "reset_launches"))
 DEVICE = "cuda"
 SEED = 1234
 BATCH = 8192
@@ -233,10 +281,11 @@ CLI_READS = 2_200_000
 # "native-lazy").
 GENCODE_READS = 1 << 20
 GENCODE_FILE_READS = 8_388_608
-REPS = 50  # calls per device-time measurement
+STAGES_FEED_READS = 2_097_152  # the stages phase's FASTQ for the feed's rates
+STEP_EM = ("iteration", "e_step", "m_step", "assign")  # profile_step_torch.profile_em's measurements
 L2_BYTES = 50 * 2**20
 PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck", "fuzz",
-          "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "gencode", "samples")
+          "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "gencode", "stages", "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
 RANK_JOIN_S = 420  # a world of rank processes is killed after this long
@@ -274,166 +323,13 @@ def rotation(args, nbytes: int):
     return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
 
 
-MARK = "spin_kernel"  # torch.cuda._sleep's kernel, which marks where a call starts
-
-
-def whole_calls(events):
-    """The device operations of each call that a trace holds whole: the
-    runs between consecutive marks whose length is the most common one.
-    A lost record shortens its call's run and a lost mark merges two
-    runs; either way that run is left out."""
-    runs, cur = [], None
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        if MARK in e.name:
-            if cur is not None:
-                runs.append(cur)
-            cur = []
-        elif cur is not None:
-            cur.append(e)
-    if not runs:
-        return []
-    lengths = [len(r) for r in runs]
-    n = max(set(lengths), key=lengths.count)
-    return [r for r in runs if len(r) == n]
-
-
-def _warm_up(torch, fn, arg_sets):
-    """One call on each argument set and one more: the outputs a timed
-    loop holds (one a set, see device_ms), with the caching allocator
-    holding the spare block the loop's next output takes, so no trace
-    allocates device memory."""
-    held = [None] * len(arg_sets)
-    for r in range(len(arg_sets) + 1):
-        held[r % len(arg_sets)] = fn(*arg_sets[r % len(arg_sets)])
-    torch.cuda.synchronize()
-    return held
-
-
-def device_ms(torch, fn, arg_sets, kernel=None, reps=None):
-    """Mean device time of one call of fn(*args), in ms: torch.profiler
-    over `reps` calls after a warm-up, cycling through arg_sets.  With
-    `kernel` (a substring of a kernel's name) the mean time of that
-    kernel's traced launches; else the mean, over the calls the trace
-    holds whole (whole_calls), of the sum of each call's device
-    operations.  The host's share of a call is left out.
-
-    Each call's output is held until its input comes round again, so
-    the outputs too cycle through as many buffers as arg_sets: a call
-    writes to memory the L2 no longer holds, and its write-back falls
-    inside the timed calls, as on the main path.
-
-    A trace on the card can lose some of its device records (1 to 3 of
-    50 in most traces, all of them in some).  So a trace is taken again
-    until one holds nine tenths of the launches or whole calls, at most
-    eight times, keeping the fullest, which must hold half of them."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if reps is None:
-        reps = REPS
-    held = _warm_up(torch, fn, arg_sets)
-    best, counts = [], []
-    for _ in range(8):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for r in range(reps):
-                if kernel is None:
-                    torch.cuda._sleep(0)
-                held[r % len(arg_sets)] = fn(*arg_sets[r % len(arg_sets)])
-            if kernel is None:
-                torch.cuda._sleep(0)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e for e in events if kernel in e.name] if kernel is not None else whole_calls(events)
-        counts.append(len(mine))
-        if len(mine) > len(best):
-            best = mine
-        if len(best) >= reps - reps // 10:
-            break
-    del held
-    if len(set(counts)) > 1:
-        print(f"[kernels] traces of {kernel or 'a call'} held {counts} {'launches' if kernel else 'whole calls'} "
-              f"of {reps}; the fullest is used")
-    require((reps + 1) // 2 <= len(best) <= reps,
-            f"{len(best)} {'launches of ' + kernel if kernel else 'whole calls'} traced in {reps} calls")
-    if kernel is not None:
-        ms = sum(e.time_range.elapsed_us() for e in best) / len(best) / 1e3
-    else:
-        ms = sum(e.time_range.elapsed_us() for run in best for e in run) / len(best) / 1e3
-    require(ms > 0, f"no device time traced for {kernel or 'a call'}")
-    return ms
-
-
 def in_turns(torch, kernel_fn, plain_fn, arg_sets, kernel, reps=None):
     """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p1 = device_ms(torch, plain_fn, arg_sets, reps=reps)
-    k1 = device_ms(torch, kernel_fn, arg_sets, kernel, reps)
-    k2 = device_ms(torch, kernel_fn, arg_sets, kernel, reps)
-    p2 = device_ms(torch, plain_fn, arg_sets, reps=reps)
+    p1 = device_ms(plain_fn, arg_sets, reps=reps)
+    k1 = device_ms(kernel_fn, arg_sets, kernel, reps)
+    k2 = device_ms(kernel_fn, arg_sets, kernel, reps)
+    p2 = device_ms(plain_fn, arg_sets, reps=reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def launch_split_ms(torch, fn, arg_sets, prefix, reps=None):
-    """Mean device ms per launch of each kernel whose name holds `prefix`
-    in calls of fn(*args) (torch.profiler, as device_ms; a kernel is
-    named by the identifier before its template or argument list), and
-    how many launches of each the trace held.  Outputs are held as in
-    device_ms.  A trace that lost records is taken again as in device_ms:
-    until each kernel traced holds nine tenths of the calls' launches,
-    at most eight times, keeping the trace with the most launches."""
-    import re
-    from collections import defaultdict
-
-    from torch.profiler import ProfilerActivity, profile
-
-    reps = reps or REPS
-    held = _warm_up(torch, fn, arg_sets)
-    best, counts = {}, []
-    for _ in range(8):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for r in range(reps):
-                held[r % len(arg_sets)] = fn(*arg_sets[r % len(arg_sets)])
-            torch.cuda.synchronize()
-        times = defaultdict(list)
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name:
-                times[re.search(rf"{prefix}\w*", e.name).group(0)].append(e.time_range.elapsed_us())
-        counts.append(sum(map(len, times.values())))
-        if counts[-1] > sum(map(len, best.values())):
-            best = times
-        if best and all(len(us) >= reps - reps // 10 for us in best.values()):
-            break
-    del held
-    if len(set(counts)) > 1:
-        print(f"[kernels] traces of {prefix} kernels held {counts} launches in {reps} calls; the fullest is used")
-    require(bool(best), f"no {prefix} kernel traced")
-    split = {name: (sum(us) / len(us) / 1e3, len(us)) for name, us in best.items()}
-    require(all(ms > 0 for ms, _ in split.values()), f"a {prefix} kernel traced no device time: {split}")
-    return split
-
-
-def counters():
-    """Each kernel wrapper's launch count (name -> (object, attribute))."""
-    from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
-    from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
-    from sketch_rna_tpu_torch.em.segsum import segsum_apply
-    from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
-    from sketch_rna_tpu_torch.match import row_sort
-
-    found = {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
-             "K3": (nthash_sketch, "launches"), "K4": (row_sort.row_sort, "launches"),
-             "K4-int64": (row_sort.row_sort, "launches_i64"), "merge": (row_sort.merge_pairs, "launches"),
-             "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches")}
-    if hasattr(row_sort, "merge_partition"):  # a parent checkout (--parent) may predate it
-        found["merge-partition"] = (row_sort.merge_partition, "launches")
-    return found
-
-
-def reset_launches() -> None:
-    for obj, attr in counters().values():
-        setattr(obj, attr, 0)
-
-
-def read_launches() -> dict:
-    return {name: getattr(obj, attr) for name, (obj, attr) in counters().items()}
 
 
 def record(results, name, **kw) -> None:
@@ -594,16 +490,18 @@ def shared_cases(torch, ctx):
 def shared_times(torch, ctx):
     """shared_cases' device ms per whole call, two traces each: what the
     shared-shapes phase prints for a comparison run."""
-    return {name: (device_ms(torch, fn, args, reps=reps) + device_ms(torch, fn, args, reps=reps)) / 2
+    return {name: (device_ms(fn, args, reps=reps) + device_ms(fn, args, reps=reps)) / 2
             for name, (fn, args, reps) in shared_cases(torch, ctx).items()}
 
 
 def parent_times(torch, parent: Path):
     """shared_times of `parent`, a checkout of another commit holding this
-    script, in a process of its own on this card."""
+    script, in a process of its own on this card, timed by this tree's
+    utils/profiling.py (TIMING_ENV), as this tree's times are."""
     torch.cuda.empty_cache()
+    env = dict(os.environ, **{TIMING_ENV: str(ROOT / "sketch_rna_tpu_torch" / "utils" / "profiling.py")})
     run = subprocess.run([sys.executable, str(parent / "chip_smoke.py"), "--phases", "shared-shapes"], cwd=parent,
-                         capture_output=True, text=True, timeout=600)
+                         env=env, capture_output=True, text=True, timeout=600)
     require(run.returncode == 0, f"the functions of {parent} did not run: {run.stdout[-1500:]}{run.stderr[-1500:]}")
     line = [ln for ln in run.stdout.splitlines() if ln.startswith('{"shared_ms"')]
     require(bool(line), f"no timing line from {parent}")
@@ -758,7 +656,7 @@ def phase_kernels(torch, results, ctx, parent=None):
               + (f"torch.sort {library_ms:.5f} ms, " if library_ms is not None else "")
               + f"bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
         if name == "K3":  # its two passes, per launch
-            passes = {p: device_ms(torch, fn, arg_sets, f"hash_kept_kernel<{w}>") for p, w in
+            passes = {p: device_ms(fn, arg_sets, f"hash_kept_kernel<{w}>") for p, w in
                       (("count_pass_ms", "false"), ("write_pass_ms", "true"))}
             record(results, name, **passes)
             print(f"[kernels] K3 passes, device ms per launch: count {passes['count_pass_ms']:.5f}, "
@@ -889,8 +787,8 @@ def phase_merge(torch, results):
         arg_sets = rotation((x,), nbytes // 2)
         reps = REPS if nbytes < 2**28 else 10
         ms, plain_ms = in_turns(torch, merge_pairs, plain, arg_sets, None, reps)
-        split = launch_split_ms(torch, merge_pairs, arg_sets, "merge_", reps)
-        sort_ms = device_ms(torch, row_sort_plain, arg_sets, reps=reps)
+        split = launch_split_ms(merge_pairs, arg_sets, "merge_", reps)
+        sort_ms = device_ms(row_sort_plain, arg_sets, reps=reps)
         b_ms, by = bound(nbytes, ops)
         shapes[f"[{B}, {W}] {dtype_name}"] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=sort_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
@@ -1154,7 +1052,7 @@ def phase_probe_segsum(torch, results, ctx):
             return bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)
 
         ms, plain_ms = in_turns(torch, kern, plain, arg_sets, "bucket_probe_kernel")
-        lib_ms = device_ms(torch, lambda h, m, keys=keys, row_ptr=row_ptr: probe(h, m, keys, row_ptr), arg_sets)
+        lib_ms = device_ms(lambda h, m, keys=keys, row_ptr=row_ptr: probe(h, m, keys, row_ptr), arg_sets)
         nbytes, ops = probe_work(h, m, bucket_lookup_plain(h, m, t.packed, shift=t.shift, mb=t.mb)[1], t)
         b_ms, by = bound(nbytes, ops)
         timed = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
@@ -1183,8 +1081,8 @@ def phase_probe_segsum(torch, results, ctx):
             return torch.zeros(T_, dtype=v.dtype, device=DEVICE).index_add_(0, idx, v)
 
         ms, plain_ms = in_turns(torch, kern, plain, arg_sets, None, reps=20)
-        lib_ms = device_ms(torch, scatter, arg_sets, reps=20)
-        split = launch_split_ms(torch, kern, arg_sets, "segsum_", reps=20)
+        lib_ms = device_ms(scatter, arg_sets, reps=20)
+        split = launch_split_ms(kern, arg_sets, "segsum_", reps=20)
         nbytes, ops = segsum_work(plan, v.element_size())
         b_ms, by = bound(nbytes, ops)
         key = f"{name} {str(dtype)[6:]}"
@@ -1192,7 +1090,7 @@ def phase_probe_segsum(torch, results, ctx):
                      bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, shape=key, timed="per call",
                      launch_ms={k: launch_ms for k, (launch_ms, _) in split.items()})
         if name.startswith("sample"):  # ROADMAP's auto condition: the plan's build beside the scatter
-            timed["plan_ms"] = device_ms(torch, lambda t, T_=T_: build_segsum_plan(t, T_), [(tids,)], reps=20)
+            timed["plan_ms"] = device_ms(lambda t, T_=T_: build_segsum_plan(t, T_), [(tids,)], reps=20)
         by_shape[key] = timed
         if name.startswith("c3") and dtype == torch.float64:
             record(results, "S", **timed)
@@ -2224,7 +2122,7 @@ def phase_sharded(torch, results, ctx, smi):
                             f"merge_pairs differs from bitonic_merge_pair at [{rows}, {width}] {dtype_name}")
                     arg_sets = rotation((x,), nbytes // 2)
                     ms, plain_ms = in_turns(torch, merge_pairs, plain, arg_sets, None)
-                    sort_ms = device_ms(torch, row_sort_plain, arg_sets)  # the yardstick: torch.sort of the rows
+                    sort_ms = device_ms(row_sort_plain, arg_sets)  # the yardstick: torch.sort of the rows
                     b_ms, by = bound(nbytes, ops)
                     timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=sort_ms, bound_ms=b_ms, bound_by=by)
                     print(f"[sharded] merge [{rows}, {width}] {dtype_name} (a gathered batch's round): kernel "
@@ -2457,11 +2355,12 @@ def _top_c_keys(counts):
         rowmatch._smallest = inner
 
 
-def phase_gencode(torch, results):
+def phase_gencode(torch, results, ctx):
     """GENCODE width on the card: both 250k-transcript indexes equal to the
     JAX package's, the fused quants of 2^20 150 bp reads at k = 31 and
     ks (21, 31), float64, against the global-sort matcher and the streamed
-    engine, and 8,388,608 reads from a FASTQ through the CLI."""
+    engine, and 8,388,608 reads from a FASTQ through the CLI.  The
+    transcriptome, indexes and reads stay in ctx["gencode"] for stages."""
     import collections
     import dataclasses
     import io
@@ -2492,6 +2391,7 @@ def phase_gencode(torch, results):
     packed = PackedReads(codes, lengths, [])
     print(f"[gencode] {n_reads} reads of up to 150 bp (seed 7, padded to 256; {int((lengths < 150).sum())} shorter, "
           f"from transcripts that short)")
+    ctx["gencode"] = dict(seqs=seqs, indexes=indexes, codes=codes, lengths=lengths)
 
     for ks, (_, index) in indexes.items():
         tag = f"gencode k={','.join(map(str, ks))}"
@@ -2605,6 +2505,149 @@ def phase_gencode(torch, results):
         record(results, name, launches_gencode=path[name])
 
 
+def gencode_problem(torch, ctx):
+    """The gencode phase's transcriptome, indexes and 2^20 reads: its own
+    when it ran, else built the same way (the indexes on the card, held
+    to the JAX build's digests)."""
+    if "gencode" not in ctx:
+        import collections
+
+        from sketch_rna_tpu_torch.utils.synth import gencode_transcriptome, sample_reads
+
+        seqs = gencode_transcriptome()
+        codes, lengths = sample_reads(seqs, GENCODE_READS, 150, 256, seed=7)
+        ctx["gencode"] = dict(seqs=seqs, indexes=gencode_indexes(torch, seqs, collections.Counter()), codes=codes,
+                              lengths=lengths)
+    return ctx["gencode"]
+
+
+def phase_stages(torch, results, ctx, smi):
+    """The first per-stage device profile at GENCODE width, through the
+    profile scripts' functions (scripts/profile_*_torch.py): the step's
+    stages and the EM at 250,000 transcripts, k = 31 and (21, 31); the
+    multi-k decomposition; the posterior-sum strategies on the k = 31
+    class table; the host feed of a 2,097,152-read FASTQ; and one fused
+    2^20-read float64 quant at k = 31 under torch.profiler.  Checks on
+    the phase's own batch and class table: the chained stages equal
+    sketch_match_step, which equals its plain route, and S equals
+    segsum_plain and gives the same bits twice (profile_scatter's
+    checks)."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import profile_em_scatter_torch
+    import profile_feed_torch
+    import profile_multik_torch
+    import profile_step_torch
+
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.io.packing import PackedReads
+    from sketch_rna_tpu_torch.match.bucket_lookup import probe_index_plain
+    from sketch_rna_tpu_torch.match.row_sort import row_sort_plain
+    from sketch_rna_tpu_torch.pipeline import quantify, sketch_match_step
+    from sketch_rna_tpu_torch.sketch.fracminhash import sketch_all_k
+    from sketch_rna_tpu_torch.utils.profiling import (device_ms_by_name, host_ops, read_launches, reset_launches,
+                                                      traced)
+    from sketch_rna_tpu_torch.utils.synth import sample_reads, write_fastq
+
+    dev = torch.device(DEVICE)
+    g = gencode_problem(torch, ctx)
+    codes, lengths = g["codes"], g["lengths"]
+    T = len(g["seqs"])
+    line = {"card": smi, "transcripts": T, "reads": int(lengths.size), "step": {}, "em": {}}
+    tables = {}
+    for ks, (_, index) in g["indexes"].items():
+        tag = ",".join(map(str, ks))
+        config = QuantConfig(kmer_lengths=ks, batch_size=BATCH, max_read_len=256, em_dtype="float64")
+        c, n, caps = profile_step_torch.first_batch(index, codes, lengths, BATCH)
+        try:
+            line["step"][tag] = profile_step_torch.profile_stages(index, config, c, n, caps)
+        except AssertionError as exc:
+            require(False, f"stages ks {ks}: {exc}")
+        got = sketch_match_step(c, n, index, config, caps)
+        want = sketch_match_step(c, n, index, config, caps, sketch=sketch_all_k, sort=row_sort_plain,
+                                 lookup=probe_index_plain)
+        require(all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask")),
+                f"stages ks {ks}: the kernel route's tables differ from the plain route's on the GENCODE batch")
+        tables[ks] = profile_step_torch.class_tables(index, config, codes, lengths)
+        table, base, has = tables[ks]
+        try:
+            line["em"][tag] = profile_step_torch.profile_em(table, base, has, int(lengths.size), T, config)
+        except AssertionError as exc:
+            require(False, f"stages ks {ks}: {exc}")
+        em = line["em"][tag]
+        print(f"[stages] ks {ks} [{c.shape[0]}, {c.shape[1]}]: chained stages == sketch_match_step == its plain "
+              f"route; device ms {json.dumps({s: m['device_ms'] for s, m in line['step'][tag].items()})}; EM class "
+              f"table {em['rows']} x {em['width']}, device ms {json.dumps({s: em[s]['device_ms'] for s in STEP_EM})}")
+        del c, n, got, want
+
+    try:
+        line["multik"] = profile_multik_torch.profile_multik(g["indexes"][(21, 31)][1], codes, lengths, BATCH, dev)
+    except AssertionError as exc:
+        require(False, f"stages multik: {exc}")
+    print("[stages] t(21) + t(31) against t(21, 31): " + json.dumps(line["multik"]["sum_vs_both"]))
+
+    (tid, score, weight), _, _ = tables[(31,)]
+    del tables
+    try:
+        line["em_scatter"] = profile_em_scatter_torch.profile_scatter(tid, score, weight, T, dev, chained=False)
+    except AssertionError as exc:
+        require(False, f"stages em_scatter: {exc}")
+    print(f"[stages] S == segsum_plain, bit-stable, on the GENCODE class table ({line['em_scatter']['lanes']} "
+          "lanes); device ms per posterior sum " + json.dumps(
+              {k: v["device_ms"] for k, v in line["em_scatter"]["strategies"].items()}))
+    del tid, score, weight
+
+    fcodes, flengths = sample_reads(g["seqs"], STAGES_FEED_READS, 150, 152, seed=71)
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = os.path.join(tmp, "reads.fq")
+        write_fastq(fq, fcodes, flengths)
+        del fcodes, flengths
+        try:
+            line["feed"] = profile_feed_torch.profile_feed(fq, 1 << 20, 31, BATCH, dev, upload=dev.type == "cuda")
+        except AssertionError as exc:
+            require(False, f"stages feed: {exc}")
+    print("[stages] feed reads/s: " + json.dumps({k: round(v["reads_per_s"], 1) for k, v in line["feed"].items()
+                                                   if isinstance(v, dict) and "reads_per_s" in v}))
+
+    # One fused quant traced: the untraced run's wall time beside it.
+    index = g["indexes"][(31,)][1]
+    config = QuantConfig(batch_size=BATCH, max_read_len=256, em_dtype="float64")
+    packed = PackedReads(codes, lengths, [])
+    quantify(index, packed, config)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = quantify(index, packed, config)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    reset_launches()
+    events, wall = traced(lambda: quantify(index, packed, config), dev)
+    launches = read_launches()
+    for name in results:
+        record(results, name, launches_stages=launches[name])
+    missing = [k for k in ("K1", "K4", "P") if launches[k] < 1]
+    require(not missing, f"stages: kernels never launched in the traced quant: {missing}")
+    batches = -(-int(lengths.size) // BATCH)
+    device_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s, share = busy_share(device_events, wall)
+    line["quant"] = {"reads": int(lengths.size), "batches": batches, "untraced_s": untraced, "traced_s": wall,
+                     "timing": res.timing, "em_iterations": res.em_iterations,
+                     "device_ops": len(device_events), "busy_s": busy_s, "busy_share": share, "idle_share": 1 - share,
+                     "top_ops": [{"name": n, "device_ms": ms, "records": c}
+                                 for n, ms, c in device_ms_by_name(device_events, 15)],
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "launches_per_batch": {k: v / batches for k, v in launches.items() if v},
+                     "host_ops_per_batch": host_ops(events, batches)}
+    require(np.isfinite(res.pi).all() and res.num_mapped > 0.9 * lengths.size, "stages: the traced quant's result")
+    q = line["quant"]
+    print(f"[stages] fused quant of {q['reads']} reads at k = 31: {untraced:.4f} s untraced, {wall:.4f} s traced; "
+          f"{q['device_ops']} device operations, busy {100 * share:.1f}% (idle {100 * (1 - share):.1f}%); "
+          f"per batch " + json.dumps({k: round(v, 1) for k, v in q["host_ops_per_batch"].items()})
+          + f"; launches {json.dumps(q['launches'])}")
+    print(f"[stages] {json.dumps(line)}")
+    del events, device_events
+
+
 def phase_samples():
     """Multi-sample, TPM, refbin and EM checkpoints on examples/."""
     import shutil
@@ -2673,19 +2716,11 @@ def profile_stream(torch, ctx):
         res = quantify_streamed(c3["index"], packed, c3["config"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0  # before the profiler's own teardown
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0, None
-    for a, b in spans:  # union of device intervals, in microseconds
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    events = cuda_events(prof)
+    busy_s, share = busy_share(events, wall)
     print(f"[profile] streamed quant of {packed.num_reads} reads: wall {wall:.4f} s traced, stages "
           f"{json.dumps({k: round(v, 4) for k, v in res.timing.items()})}; {len(events)} device operations, "
-          f"busy {busy / 1e3:.2f} ms: idle {100 * (1 - busy / 1e6 / wall):.1f}%")
+          f"busy {busy_s * 1e3:.2f} ms: idle {100 * (1 - share):.1f}%")
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     print(table)
 
@@ -2700,7 +2735,7 @@ def main() -> int:
     parser.add_argument("--parent", type=Path, default=None,
                         help="a checkout of another commit holding this script: the kernels phase times the "
                              "functions both trees share there too, before and after this tree's "
-                             "(parent_shared_ms)")
+                             "(parent_shared_ms), with this tree's timing helpers (utils/profiling.py)")
     parser.add_argument("--rank-worker", nargs=5, metavar=("RANK", "WORLD", "PORT", "WORKDIR", "DEVICE"),
                         help="run as one rank process of the sharded phase (what that phase starts)")
     args = parser.parse_args()
@@ -2754,7 +2789,8 @@ def main() -> int:
         "sharded": lambda: phase_sharded(torch, results, ctx, smi),
         "stream-c3": lambda: phase_stream_c3(torch, ctx),
         "cli-stream": lambda: phase_cli_stream(torch, ctx),
-        "gencode": lambda: phase_gencode(torch, results),
+        "gencode": lambda: phase_gencode(torch, results, ctx),
+        "stages": lambda: phase_stages(torch, results, ctx, smi),
         "samples": phase_samples,
     }
     for phase in PHASES:

@@ -3,7 +3,9 @@ scripts/scale_check.py; imports no JAX): a larger transcriptome and read
 count on one GPU.  Builds the index on the device, or loads it from the
 cache (keyed by transcripts and ks), then times one quant after a
 warm-up and reports reads/s, the loss stats, stage seconds and work
-counts.
+counts.  At 250,000 transcripts a cached index is used only if it equals
+the JAX package's build (bench_torch.load_gencode_index); else it is
+built again.
 
     python3 scripts/scale_check_torch.py [--transcripts N] [--reads N]
         [--k 31[,21]] [--read-len L] [--batch-size B] [--streaming]
@@ -49,31 +51,19 @@ def main(argv=None) -> int:
         print(exc, file=sys.stderr)
         return 2
 
+    from bench_torch import cached_index
     from sketch_rna_tpu_torch import pipeline as pl
     from sketch_rna_tpu_torch.config import QuantConfig
-    from sketch_rna_tpu_torch.index.artifact import load_index, save_index, to_device
-    from sketch_rna_tpu_torch.index.build import build_index
+    from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.utils.synth import fasta_records, gencode_transcriptome, sample_reads
+    from sketch_rna_tpu_torch.utils.synth import sample_reads
 
     ks = tuple(int(x) for x in args.k.split(","))
-    t0 = time.perf_counter()
-    seqs = gencode_transcriptome(args.transcripts)
-    print(f"transcriptome: {len(seqs)} seqs, {sum(s.size for s in seqs) / 1e6:.1f} Mb "
-          f"({time.perf_counter() - t0:.1f}s)", flush=True)
-
     cfg = QuantConfig(kmer_lengths=ks, batch_size=args.batch_size,
                       max_read_len=((args.read_len + 127) // 128) * 128, em_dtype="float32")
-    cache_path = os.path.join(args.cache_dir, f"T{args.transcripts}_k{args.k.replace(',', '_')}.npz")
     t0 = time.perf_counter()
-    if os.path.exists(cache_path):
-        artifact = load_index(cache_path)
-        print(f"index loaded from cache {cache_path}", flush=True)
-    else:
-        artifact = build_index(fasta_records(seqs), cfg, device=device)
-        print(f"index built on {device} in {time.perf_counter() - t0:.1f}s", flush=True)
-        os.makedirs(args.cache_dir, exist_ok=True)
-        save_index(cache_path, artifact)
+    artifact, seqs, where = cached_index(args.transcripts, ks, device, args.cache_dir)
+    print(f"transcriptome: {len(seqs)} seqs, {sum(s.size for s in seqs) / 1e6:.1f} Mb; {where}", flush=True)
     index = to_device(artifact, device)
     t_index = time.perf_counter() - t0
     print(f"index: {t_index:.1f}s, keys={ {k: artifact.per_k[k].num_keys for k in ks} } "

@@ -41,8 +41,11 @@ print("PORT-IMPORT-CLEAN")
 
 
 # The port's scripts, which run on the machine with the GPU.
+_PROFILE_SCRIPTS = ("profile_step_torch.py", "profile_multik_torch.py", "profile_em_scatter_torch.py",
+                    "profile_sketch_torch.py", "profile_feed_torch.py", "profile_stream_torch.py")
 _SCRIPTS = [os.path.join(_REPO, "scripts", n) for n in ("fuzz_oracle_torch.py", "evaluate_accuracy_torch.py",
-                                                        "scale_check_torch.py", "make_fastq_torch.py")]
+                                                        "scale_check_torch.py", "make_fastq_torch.py",
+                                                        *_PROFILE_SCRIPTS)]
 
 
 def _sources():
@@ -129,6 +132,40 @@ print("SCRIPT-CLEAN")
 def test_script_runs_without_jax(script, args, tmp_path):
     env = dict(os.environ, PYTHONPATH=_REPO)
     args = [a.replace("{tmp}", str(tmp_path)) for a in args]
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_RUN, os.path.join(_REPO, "scripts", script)] + args,
+                         env=env, capture_output=True, timeout=300, cwd=_REPO)
+    assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
+    assert "SCRIPT-CLEAN" in out.stdout.decode()
+
+
+@pytest.fixture(scope="module")
+def profile_inputs(tmp_path_factory):
+    """A 30-transcript k = 31 index and a 300-read FASTQ, made by the port."""
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.index.artifact import save_index
+    from sketch_rna_tpu_torch.index.build import build_index
+    from sketch_rna_tpu_torch.utils.synth import fasta_records, gencode_transcriptome, sample_reads, write_fastq
+
+    tmp = tmp_path_factory.mktemp("profile_scripts")
+    seqs = gencode_transcriptome(30)
+    save_index(str(tmp / "T30_k31.npz"), build_index(fasta_records(seqs), QuantConfig(), device="cpu"))
+    write_fastq(str(tmp / "reads.fq"), *sample_reads(seqs, 300, 150, 152, seed=4))
+    return tmp
+
+
+@pytest.mark.parametrize("script,args", [
+    ("profile_step_torch.py", ["--transcripts", "30", "--reads", "300", "--batch", "128", "--cache-dir", "{tmp}"]),
+    ("profile_multik_torch.py", ["--transcripts", "30", "--reads", "300", "--batch", "32", "--cache-dir", "{tmp}"]),
+    ("profile_em_scatter_torch.py", ["1000", "8", "200", "--chained"]),
+    ("profile_sketch_torch.py", ["16", "104", "31"]),
+    ("profile_feed_torch.py", ["{tmp}/reads.fq", "--chunk", "128", "--batch", "128"]),
+    ("profile_stream_torch.py", ["{tmp}/T30_k31.npz", "{tmp}/reads.fq", "--chunk-reads", "128", "--resident"]),
+], ids=["step", "multik", "em-scatter", "sketch", "feed", "stream"])
+def test_profile_script_runs_without_jax(script, args, profile_inputs):
+    # One intra-op thread: the scripts time many small calls, which
+    # contend badly for the cores with the suite's other workers.
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
+    args = [a.replace("{tmp}", str(profile_inputs)) for a in args] + ["--device", "cpu"]
     out = subprocess.run([sys.executable, "-c", _SCRIPT_RUN, os.path.join(_REPO, "scripts", script)] + args,
                          env=env, capture_output=True, timeout=300, cwd=_REPO)
     assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
