@@ -27,7 +27,8 @@ without printing its result line:
                 torch.sort at every width; then the functions both trees
                 share (K3's call, sketch_reads of 2 kb and 20 kb reads,
                 row_sort_wide, the merge at its four main-path shapes, P
-                on the first c3 batch, S on the c3 EM's lanes), with
+                on the first c3 batch, S on the c3 EM's lanes: its tables'
+                width tiers, joined), with
                 --parent also in DIR.  Device time is torch.profiler's, per
                 kernel launch or per whole call, over 50 calls whose inputs
                 rotate through copies past the L2 cache (and outputs
@@ -179,11 +180,15 @@ without printing its result line:
                 kernel route equal to the plain route (sketch_all_k,
                 row_sort_plain, probe_index_plain); one EM iteration, its
                 E- and M-step and the assignment at each quant's class
-                table; t(21) + t(31) against t(21, 31) per stage and the
-                merged grouping's sort both ways (bit-equal); the
-                posterior-sum strategies on the k = 31 class table (each
-                within 1e-12 of index_add_, S bit-stable and equal to
-                segsum_plain); the host feed of a 2,097,152-read FASTQ;
+                tables (their width tiers); t(21) + t(31) against t(21, 31)
+                per stage and the merged grouping's sort both ways
+                (bit-equal); the posterior-sum strategies over the k = 31
+                EM tables' tiers and, in the same run, over those classes
+                padded back into one [M, W] table (each within 1e-12 of
+                index_add_, S bit-stable and equal to segsum_plain; the
+                tiers hold fewer lanes, the same nonzero ones); each
+                table's rows and width, the lanes and the zero lanes;
+                the host feed of a 2,097,152-read FASTQ;
                 then one fused 2^20-read float64 quant at k = 31 under
                 torch.profiler: untraced and traced wall time, the
                 card's busy and idle share, the 15 largest operations'
@@ -479,9 +484,9 @@ def shared_cases(torch, ctx):
     h, m = c3_probe_batch(torch, ctx)[31]
     cases[f"bucket_lookup k=31 [{BATCH}, {h.shape[1]}]"] = (
         lambda h, m: bucket_lookup(h, m, t.packed, shift=t.shift, mb=t.mb), rotation((h, m), 9 * h.numel()), REPS)
-    table = c3_em_table(torch, ctx)
-    plan = plan_from_tables([table], c3_problem(torch, ctx)["index"].num_transcripts)
-    v = torch.rand(table[0].numel(), generator=gen, device=DEVICE, dtype=torch.float64)
+    tables = c3_em_tables(torch, ctx)
+    plan = plan_from_tables(tables, c3_problem(torch, ctx)["index"].num_transcripts)
+    v = torch.rand(sum(t[0].numel() for t in tables), generator=gen, device=DEVICE, dtype=torch.float64)
     cases[f"segsum_apply c3 EM lanes [{v.numel()}] float64"] = (lambda v: segsum_apply(plan, v),
                                                                 rotation((v,), 8 * v.numel()), 20)
     return cases
@@ -805,20 +810,22 @@ def phase_merge(torch, results):
            shape=f"[{BATCH}, 256] int32 ({main['what']})", timed="per call (all launches)", shapes=shapes)
 
 
-def c3_em_table(torch, ctx):
-    """The c3 stand-in's EM lanes: the class table the fused engine runs
-    its EM over for the 2^21 reads (match_rows, then build_class_tables
-    as _quantify_fused folds it); built once."""
+def c3_em_tables(torch, ctx):
+    """The c3 stand-in's EM lanes: the tables the fused engine runs its EM
+    over for the 2^21 reads (match_rows, then pipeline.em_tables as
+    _quantify_fused calls it: the class tables' width tiers, singletons
+    folded); built once."""
     if "c3_em" not in ctx:
-        from sketch_rna_tpu_torch.em.classes import build_class_tables
         from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
-        from sketch_rna_tpu_torch.pipeline import _fold_ok, match_rows
+        from sketch_rna_tpu_torch.pipeline import em_tables, match_rows
 
         c3 = c3_problem(torch, ctx)
         cfg, T = c3["config"], c3["index"].num_transcripts
-        tid, score, _, _ = match_rows(c3["index"], torch.from_numpy(c3["codes"]), c3["lengths"], cfg)
+        tid, score, n_padded, _ = match_rows(c3["index"], torch.from_numpy(c3["codes"]), c3["lengths"], cfg)
         W = min(pow2ceil(max(int((score > 0).sum(dim=1).max()), 1)), cfg.candidate_capacity)
-        ctx["c3_em"] = build_class_tables(tid[:, :W], score[:, :W], num_transcripts=T, fold=_fold_ok(cfg, T))[0]
+        ctx["c3_em"] = em_tables(tid[:, :W], score[:, :W], cfg, num_transcripts=T, n_rows=n_padded)[0]
+        print("[c3] EM tables (rows x width): " + ", ".join(f"{t[0].shape[0]} x {t[0].shape[1]}" for t in ctx["c3_em"])
+              + f"; {sum(t[0].numel() for t in ctx['c3_em'])} lanes, of a [{tid.shape[0]}, {W}] candidate table")
     return ctx["c3_em"]
 
 
@@ -979,9 +986,9 @@ def phase_probe_segsum(torch, results, ctx):
     # on one transcript spanning ~200 blocks and ~1,100 blocks (its carries
     # span three carry blocks of 512: the top scan runs), and on the
     # sample's EM lanes; float64, float32, int32.
-    table = c3_em_table(torch, ctx)
+    tables = c3_em_tables(torch, ctx)
     T = index.num_transcripts
-    flat_tid = table[0].reshape(-1)
+    flat_tid = torch.cat([t[0].reshape(-1) for t in tables])
     n = flat_tid.numel()
 
     def one_long(blocks):
@@ -990,7 +997,7 @@ def phase_probe_segsum(torch, results, ctx):
         return tids[torch.randperm(tids.numel(), generator=gen, device=DEVICE)]
 
     sample_tid, sample_T = sample_em_lanes(torch)
-    plans = {f"c3 EM lanes [{n}]": (plan_from_tables([table], T), flat_tid, T),
+    plans = {f"c3 EM lanes [{n}]": (plan_from_tables(tables, T), flat_tid, T),
              f"c3 EM lanes [{n - 7}]": (build_segsum_plan(flat_tid[: n - 7], T), flat_tid[: n - 7], T)}
     for blocks in (195, 1100):
         tids = one_long(blocks)
@@ -2525,13 +2532,15 @@ def phase_stages(torch, results, ctx, smi):
     """The first per-stage device profile at GENCODE width, through the
     profile scripts' functions (scripts/profile_*_torch.py): the step's
     stages and the EM at 250,000 transcripts, k = 31 and (21, 31); the
-    multi-k decomposition; the posterior-sum strategies on the k = 31
-    class table; the host feed of a 2,097,152-read FASTQ; and one fused
+    multi-k decomposition; the posterior-sum strategies over the k = 31
+    EM tables' width tiers and over the same classes padded into one
+    [M, W] table; the host feed of a 2,097,152-read FASTQ; and one fused
     2^20-read float64 quant at k = 31 under torch.profiler.  Checks on
-    the phase's own batch and class table: the chained stages equal
-    sketch_match_step, which equals its plain route, and S equals
+    the phase's own batch and EM tables: the chained stages equal
+    sketch_match_step, which equals its plain route, S equals
     segsum_plain and gives the same bits twice (profile_scatter's
-    checks)."""
+    checks), and the tiers hold fewer lanes than the single table, the
+    same nonzero ones."""
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -2570,15 +2579,15 @@ def phase_stages(torch, results, ctx, smi):
         require(all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask")),
                 f"stages ks {ks}: the kernel route's tables differ from the plain route's on the GENCODE batch")
         tables[ks] = profile_step_torch.class_tables(index, config, codes, lengths)
-        table, base, has = tables[ks]
         try:
-            line["em"][tag] = profile_step_torch.profile_em(table, base, has, int(lengths.size), T, config)
+            line["em"][tag] = profile_step_torch.profile_em(*tables[ks], int(lengths.size), T, config)
         except AssertionError as exc:
             require(False, f"stages ks {ks}: {exc}")
         em = line["em"][tag]
         print(f"[stages] ks {ks} [{c.shape[0]}, {c.shape[1]}]: chained stages == sketch_match_step == its plain "
-              f"route; device ms {json.dumps({s: m['device_ms'] for s, m in line['step'][tag].items()})}; EM class "
-              f"table {em['rows']} x {em['width']}, device ms {json.dumps({s: em[s]['device_ms'] for s in STEP_EM})}")
+              f"route; device ms {json.dumps({s: m['device_ms'] for s, m in line['step'][tag].items()})}; EM tables "
+              f"(rows x width) {', '.join(f'{r} x {w}' for r, w in em['tiers'])}, {em['lanes']} lanes, device ms "
+              f"{json.dumps({s: em[s]['device_ms'] for s in STEP_EM})}")
         del c, n, got, want
 
     try:
@@ -2587,16 +2596,27 @@ def phase_stages(torch, results, ctx, smi):
         require(False, f"stages multik: {exc}")
     print("[stages] t(21) + t(31) against t(21, 31): " + json.dumps(line["multik"]["sum_vs_both"]))
 
-    (tid, score, weight), _, _ = tables[(31,)]
+    # The posterior-sum strategies over the k = 31 tiers, then over the
+    # same classes padded back into one [M, W] table (the layout the
+    # port ran its EM over before it had tiers).
+    tiers = tables[(31,)][0]
     del tables
-    try:
-        line["em_scatter"] = profile_em_scatter_torch.profile_scatter(tid, score, weight, T, dev, chained=False)
-    except AssertionError as exc:
-        require(False, f"stages em_scatter: {exc}")
-    print(f"[stages] S == segsum_plain, bit-stable, on the GENCODE class table ({line['em_scatter']['lanes']} "
-          "lanes); device ms per posterior sum " + json.dumps(
-              {k: v["device_ms"] for k, v in line["em_scatter"]["strategies"].items()}))
-    del tid, score, weight
+    for key, tabs in (("em_scatter", tiers), ("em_scatter_single", [profile_em_scatter_torch.single_layout(tiers)])):
+        try:
+            line[key] = profile_em_scatter_torch.profile_scatter(tabs, T, dev, chained=False)
+        except AssertionError as exc:
+            require(False, f"stages {key}: {exc}")
+        out = line[key]
+        print(f"[stages] {key}: S == segsum_plain, bit-stable, on the GENCODE EM tables (rows x width) "
+              f"{', '.join(f'{r} x {w}' for r, w in out['tables'])}: {out['lanes']} lanes, {out['zero_lanes']} of "
+              "them zero; device ms per posterior sum "
+              + json.dumps({k: v["device_ms"] for k, v in out["strategies"].items()}))
+        del tabs
+    tiered, single = line["em_scatter"], line["em_scatter_single"]
+    require(tiered["lanes"] < single["lanes"] and tiered["lanes"] - tiered["zero_lanes"]
+            == single["lanes"] - single["zero_lanes"],
+            f"stages: the tiers hold {tiered['lanes']} lanes against the single table's {single['lanes']}")
+    del tiers
 
     fcodes, flengths = sample_reads(g["seqs"], STAGES_FEED_READS, 150, 152, seed=71)
     with tempfile.TemporaryDirectory() as tmp:

@@ -9,10 +9,14 @@ The sum is ps[t] = the sum of the lanes' values whose transcript is t,
 at float64 (the port's EM default).  Lanes: by default the JAX script's
 shape, N x W lanes (204,800 x 16) over T = 50,000 transcripts with skewed
 tids floor(u * u * T) and uniform values, drawn with numpy (seed 0);
-with --from-index the class table of a fused quant of --reads 150 bp
-reads (seed 7) at k = 31 against the index of
+with --from-index the EM tables that a fused quant of --reads 150 bp
+reads (seed 7) at k = 31 builds (pipeline.em_tables: the class tables'
+width tiers, joined in table order) against the index of
 synth_transcriptome(default_rng(2026), --transcripts) (profile_step_torch's
 cache), its values the first E-step's posteriors times the class weights.
+single_layout pads such tiers back into the one [M, W] table the port
+used before it had tiers, for a comparison in one run (chip_smoke.py's
+stages phase).
 
 Strategies, each one call of one posterior sum:
 
@@ -30,7 +34,7 @@ Strategies, each one call of one posterior sum:
                      yardstick only, never on the port's path;
   index_add_live     index_add_ over the lanes whose value is nonzero
                      alone (chosen once): a diagnostic of what the zero
-                     lanes -- a class table's padding, all on transcript
+                     lanes -- the tables' padding, all on transcript
                      0 -- cost the default route's atomics;
   cumsum_diff        cumsums over the sorted lanes, differenced at each
                      transcript's segment ends (profile_em_scatter.py:
@@ -143,28 +147,38 @@ def strategies(flat_tid, T: int, live=None):
     return fns, build_plan, plan
 
 
-def profile_scatter(tid, score, weight, T: int, device, chained: bool) -> dict:
-    """Every strategy timed (utils/profiling.measure) on one posterior
-    sum over these [M, W] lanes, held to index_add_ (S also to
-    segsum_plain and to itself, bit for bit); with `chained` also in a
-    20-iteration chained E-step.  Raises AssertionError on a check."""
+def single_layout(tables):
+    """The (tid, score, weight) tiers padded with zero lanes to the widest
+    one's width and stacked: one [M, W] table of the same classes."""
     import torch
 
-    from profile_step_torch import posteriors
+    W = max(t[0].shape[1] for t in tables)
+    tid, score = ([torch.nn.functional.pad(t[i], (0, W - t[i].shape[1])) for t in tables] for i in (0, 1))
+    weight = None if tables[0][2] is None else torch.cat([t[2] for t in tables])
+    return torch.cat(tid), torch.cat(score), weight
+
+
+def profile_scatter(tables, T: int, device, chained: bool) -> dict:
+    """Every strategy timed (utils/profiling.measure) on one posterior
+    sum over these (tid, score, weight) tables' lanes, joined in table
+    order, held to index_add_ (S also to segsum_plain and to itself, bit
+    for bit); with `chained` also in a 20-iteration chained E-step.
+    Raises AssertionError on a check."""
+    import torch
+
+    from profile_step_torch import flat_posteriors
     from sketch_rna_tpu_torch.em.segsum import segsum_plain
     from sketch_rna_tpu_torch.utils.profiling import measure
 
-    tid = tid.long()
-    score = score.to(torch.float64)
-    flat_tid = tid.reshape(-1)
-    live = (score > 0).reshape(-1)
+    flat_tid = torch.cat([t[0].long().reshape(-1) for t in tables])
+    live = torch.cat([(t[1] > 0).reshape(-1) for t in tables])
     fns, build_plan, plan = strategies(flat_tid, T, live)
-    values = posteriors(tid, score, weight, torch.full((T,), 1.0 / T, dtype=torch.float64, device=device))
-    values = values.reshape(-1).contiguous()
+    values = flat_posteriors(tables, torch.full((T,), 1.0 / T, dtype=torch.float64, device=device)).contiguous()
     want = fns["index_add"](values)
     out = {"lanes": int(flat_tid.numel()), "zero_lanes": int((~live).sum()),
            "zero_lanes_on_transcript_0": int(((~live) & (flat_tid == 0)).sum()), "transcripts": T,
-           "dtype": "float64", "strategies": {}}
+           "tables": [[int(t[0].shape[0]), int(t[0].shape[1])] for t in tables], "dtype": "float64",
+           "strategies": {}}
     for name, fn in fns.items():
         got = fn(values)
         err = rel_err(got, want)
@@ -184,17 +198,17 @@ def profile_scatter(tid, score, weight, T: int, device, chained: bool) -> dict:
         metric: (build[metric] + SUMS_PER_QUANT * seg[metric]) / SUMS_PER_QUANT
         for metric in ("wall_ms", "device_ms") if seg[metric] is not None}
     if chained:
-        out["chained"] = chained_e_step(tid, score, weight, T, fns, device)
+        out["chained"] = chained_e_step(tables, T, fns, device)
     return out
 
 
-def chained_e_step(tid, score, weight, T: int, fns, device) -> dict:
+def chained_e_step(tables, T: int, fns, device) -> dict:
     """Per strategy: ms per iteration of CHAIN_ITERS chained E-steps (pi
     gathered, rows normalised, summed, + 0.01 fed back), and its final
     pi's relative error against index_add_'s."""
     import torch
 
-    from profile_step_torch import posteriors
+    from profile_step_torch import flat_posteriors
     from sketch_rna_tpu_torch.utils.profiling import measure
 
     pi0 = torch.full((T,), 1.0 / T, dtype=torch.float64, device=device)
@@ -202,7 +216,7 @@ def chained_e_step(tid, score, weight, T: int, fns, device) -> dict:
     def chain(acc):
         pi = pi0
         for _ in range(CHAIN_ITERS):
-            pi = acc(posteriors(tid, score, weight, pi).reshape(-1)) + 0.01
+            pi = acc(flat_posteriors(tables, pi)) + 0.01
         return pi
 
     want = chain(fns["index_add"])
@@ -246,16 +260,16 @@ def main(argv=None) -> int:
 
         index, seqs = index_on_device(args.transcripts, (31,), device, args.cache_dir)
         codes, lengths = sample_reads(seqs, args.reads, READ_LEN, PAD_LEN, READS_SEED)
-        (tid, score, weight), _, _ = class_tables(index, QuantConfig(), codes, lengths)
+        tables, _, _ = class_tables(index, QuantConfig(), codes, lengths)
         T = index.num_transcripts
-        source = f"the class table of {args.reads} reads at {T} transcripts, k = 31"
+        source = f"the EM tables of {args.reads} reads at {T} transcripts, k = 31"
         del index
     else:
-        tid, score, weight = synthetic(args.N, args.W, args.T, device)
+        tables = [synthetic(args.N, args.W, args.T, device)]
         T = args.T
         source = f"synthetic: N {args.N} x W {args.W}, T {T}, tids floor(u * u * T), seed {SEED}"
     try:
-        line = profile_scatter(tid, score, weight, T, device, args.chained)
+        line = profile_scatter(tables, T, device, args.chained)
     except AssertionError as exc:
         print(f"profile_em_scatter_torch: FAILED: {exc}", file=sys.stderr)
         return 1

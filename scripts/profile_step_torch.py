@@ -31,8 +31,9 @@ equal sketch_match_step's tid, score and mask bit for bit, or the script
 exits 1.
 
 Then it matches all --reads reads (pipeline.match_rows),
-builds the fused engine's class tables (em/classes.py, singletons folded
-as _quantify_fused does) and times, at that class-table shape, one EM
+builds the fused engine's EM tables (pipeline.em_tables, as
+_quantify_fused calls it: equivalence classes in width tiers, singletons
+folded) and times, at those tables' shapes, one EM
 iteration (em/em.run_em_tables with max_iterations=1: E-step, the
 index_add_ M-step and the host's read of the convergence test), the
 E-step and the M-step alone (em.py's own lines; chained they must equal
@@ -40,9 +41,10 @@ the iteration's pi within 1e-12 relative) and the assignment
 (assign_reads_tables) -- profile_bigindex.py's EM line at the real
 shape.  The EM runs at the port's default float64.
 
-The JAX scripts' tiered-vs-flat rows (profile_gencode_step.py:139-167)
-have no counterpart: the port's event widths are exact, so it has no
-tiers (ROADMAP.md "Do not port").  Runs on the card unless --device cpu
+The JAX scripts' tiered-vs-flat matcher rows (profile_gencode_step.py:
+139-167) have no counterpart: the port's event widths are exact, so its
+matcher has no tiers (ROADMAP.md "Do not port"); the EM's class tiers
+are the engine's own, timed above.  Runs on the card unless --device cpu
 is passed, and exits 2 without one.  Prints one JSON line per index
 size and, last, one line with them all and the card's name and power
 limit.
@@ -157,18 +159,16 @@ def profile_stages(index, config, c, n, caps) -> dict:
 
 def class_tables(index, config, codes, lengths):
     """The fused engine's EM tables over all reads: match_rows, then
-    build_class_tables with the singletons folded as _quantify_fused
-    folds them.  Returns (table, static_base, static_has)."""
+    pipeline.em_tables as _quantify_fused calls it.  Returns (tables,
+    static_base, static_has)."""
     import torch
 
-    from sketch_rna_tpu_torch.em.classes import build_class_tables
     from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
-    from sketch_rna_tpu_torch.pipeline import _fold_ok, match_rows
+    from sketch_rna_tpu_torch.pipeline import em_tables, match_rows
 
-    T = index.num_transcripts
-    tid, score, _, _ = match_rows(index, torch.from_numpy(codes), lengths, config)
+    tid, score, n_padded, _ = match_rows(index, torch.from_numpy(codes), lengths, config)
     W = min(pow2ceil(max(int((score > 0).sum(dim=1).max()), 1)), config.candidate_capacity)
-    return build_class_tables(tid[:, :W], score[:, :W], num_transcripts=T, fold=_fold_ok(config, T))
+    return em_tables(tid[:, :W], score[:, :W], config, num_transcripts=index.num_transcripts, n_rows=n_padded)
 
 
 def posteriors(tid, score, weight, pi, eps: float = 1e-10):
@@ -181,26 +181,33 @@ def posteriors(tid, score, weight, pi, eps: float = 1e-10):
     return post if weight is None else post * weight.to(post.dtype)[:, None]
 
 
-def profile_em(table, static_base, static_has, num_reads: int, T: int, config) -> dict:
+def flat_posteriors(tables, pi, eps: float = 1e-10):
+    """posteriors of every (tid, score, weight) table, flattened and joined
+    in table order: the lane order of the EM's posterior sum."""
+    import torch
+
+    return torch.cat([posteriors(t[0].long(), t[1].to(pi.dtype), t[2], pi, eps).reshape(-1) for t in tables])
+
+
+def profile_em(tables, static_base, static_has, num_reads: int, T: int, config) -> dict:
     """One EM iteration, its E-step and M-step alone, and the assignment
-    at this class table (measure each); the E-step and M-step chained
+    over these tables (measure each); the E-step and M-step chained
     must give the iteration's pi within 1e-12 relative."""
     import torch
 
     from sketch_rna_tpu_torch.em.em import assign_reads_tables, run_em_tables
     from sketch_rna_tpu_torch.utils.profiling import measure
 
-    device = table[0].device
+    device = tables[0][0].device
     dt = torch.float64 if config.em_dtype == "float64" else torch.float32
     kw = dict(num_transcripts=T, convergence_threshold=config.em_convergence, pseudocount=config.pseudocount,
               epsilon=config.em_epsilon, dtype=config.em_dtype, static_base=static_base)
 
     def iteration():
-        return run_em_tables([table], num_reads, max_iterations=1, **kw)[0]
+        return run_em_tables(tables, num_reads, max_iterations=1, **kw)[0]
 
     # em/em.py's loop body, one step at a time (run_em_tables' lines).
-    tid, sc = table[0].long(), table[1].to(dt)
-    flat = tid.reshape(-1)
+    flat = torch.cat([t[0].long().reshape(-1) for t in tables])
     pi0 = torch.full((T,), 1.0 / T, dtype=dt, device=device)
     pcf = torch.tensor(config.pseudocount, dtype=torch.float32)
     term_div = (pcf / torch.tensor(float(num_reads), dtype=torch.float32)).to(device, dt)
@@ -208,9 +215,9 @@ def profile_em(table, static_base, static_has, num_reads: int, T: int, config) -
     base = static_base.to(dt) if static_base is not None else torch.zeros(T, dtype=dt, device=device)
 
     def e_step():
-        return posteriors(tid, sc, table[2], pi0, config.em_epsilon)
+        return flat_posteriors(tables, pi0, config.em_epsilon)
 
-    post = e_step().reshape(-1)
+    post = e_step()
 
     def m_step():
         return (base.clone().index_add_(0, flat, post) + term_div) + term_pc
@@ -222,10 +229,12 @@ def profile_em(table, static_base, static_has, num_reads: int, T: int, config) -
     pi = want
 
     def assign():
-        return assign_reads_tables([table], pi, num_transcripts=T, dtype=config.em_dtype, static_base=static_base,
+        return assign_reads_tables(tables, pi, num_transcripts=T, dtype=config.em_dtype, static_base=static_base,
                                    static_has=static_has)
 
-    return {"lanes": int(tid.numel()), "rows": int(tid.shape[0]), "width": int(tid.shape[1]),
+    return {"lanes": int(flat.numel()), "rows": sum(int(t[0].shape[0]) for t in tables),
+            "width": max(int(t[0].shape[1]) for t in tables),
+            "tiers": [[int(t[0].shape[0]), int(t[0].shape[1])] for t in tables],
             "steps_vs_iteration_rel": rel,
             **{name: measure(fn, device, calls=4)
                for name, fn in (("iteration", iteration), ("e_step", e_step), ("m_step", m_step),
@@ -245,8 +254,8 @@ def profile_size(n_transcripts: int, ks, args, device, card_info) -> dict:
     line = {"metric": "step_stages", "transcripts": n_transcripts, "ks": list(ks),
             "batch": list(c.shape), "caps": list(caps),
             "stages": profile_stages(index, config, c, n, caps), "chain_equals_step": True}
-    table, base, has = class_tables(index, config, codes, lengths)
-    line["em"] = profile_em(table, base, has, args.reads, index.num_transcripts, config)
+    tables, base, has = class_tables(index, config, codes, lengths)
+    line["em"] = profile_em(tables, base, has, args.reads, index.num_transcripts, config)
     line["card"] = card_info
     return line
 

@@ -56,6 +56,17 @@ class QuantConfig:
     # have: "on" takes the scatter route and, as there, turns segsum off.
     em_mxu: str = "auto"
     em_segsum: str = "auto"
+    # Collapse reads with identical candidate profiles into weighted
+    # equivalence classes, split into width tiers, before the EM (exact;
+    # EM cost then scales with transcriptome ambiguity, not read count).
+    # Off, the EM runs over the reads' rows, split into narrow and wide.
+    em_equivalence_classes: bool = True
+    # Fold single-candidate classes out of the EM loop: their E-step
+    # posterior is identically 1, so their posterior-sum contribution is
+    # an iteration-invariant constant (em/classes.py tier_partition).
+    # Off by itself when em_epsilon could zero a singleton's denominator
+    # (pipeline._fold_ok); exact whenever active.
+    em_fold_singletons: bool = True
 
     # --- streaming engine (stream.py), past FUSED_MAX_PADDED_READS --------
     # Rows of the device class buffer: bounds the DISTINCT candidate

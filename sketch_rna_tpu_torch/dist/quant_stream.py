@@ -14,7 +14,8 @@ port's streamed engine (stream.py):
           compacts and drains to its own host with no collective;
   counts  one all-reduce MAX (the widest candidate set) and one
           all-reduce SUM (read counts and loss stats) over the mesh;
-  EM      over the rank's classes, the per-transcript sums all-reduced
+  EM      over the rank's classes, which the rank splits into width tiers
+          itself (stream.classes_em), the per-transcript sums all-reduced
           over the data group each iteration (em/em.py).
 
 What keeps the ranks in step:
@@ -44,11 +45,16 @@ What keeps the ranks in step:
     all-reduce SUM with zeros from the others): every rank returns the
     same QuantResult.
 
-Not ported, because the port's exact event widths and draining class
-buffer make them unnecessary: tier calibration and shared_tier_widths,
-the tier key psum, the pretail / expansion-doubling / full-bound reruns
-and tier_partition.  The EM honours config.em_segsum
-(pipeline.em_assign), each rank planning over its own classes.
+Each rank tiers its own classes as the fused engine does
+(em/classes.py tier_partition), the pair tier included: the JAX sharded
+plan has none, and the result is exact either way, since a tier only
+drops lanes that are zero.  The tiers' row counts differ between ranks,
+which only the JAX package's static shapes had to share.  Not ported,
+because the port's exact event widths and draining class buffer make
+them unnecessary: the matcher's tier calibration and
+shared_tier_widths, the tier key psum and the pretail /
+expansion-doubling / full-bound reruns.  The EM honours config.em_segsum
+(pipeline.em_assign), each rank planning over its own tiers.
 """
 
 from __future__ import annotations

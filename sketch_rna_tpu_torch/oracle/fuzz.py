@@ -128,7 +128,7 @@ def draw(seed: int, regime: Optional[str] = None) -> dict:
         max_read_len=int(rng.choice([128, 256])),
         em_dtype="float64",
     )
-    rng.random()  # the JAX script's match_tiers: the port has no tiers
+    rng.random()  # the JAX script's match_tiers: the port's matcher has no tiers
     knobs["stream_class_capacity"] = int(rng.choice([16, 64, 1024]))
     knobs["stream_chunk_reads"] = int(rng.choice([64, 256, 1 << 20]))
     n_reads = int(rng.integers(16, 400))

@@ -15,8 +15,10 @@ src/main.cpp:165-197 in the reference):
     per k and intersect; a batch where a per-k table spilled is grouped
     again in merged mode, which truncates only the final set;
   - the [N, C] tables narrow to the widest candidate set, collapse into
-    equivalence classes (when N >= 1024, as in the JAX engine), and run
-    the EM + soft assignment (route: config.em_segsum, em/em.py em_route);
+    equivalence classes split into width tiers (em_tables: when N >= 1024
+    and config.em_equivalence_classes, as in the JAX engine), and run the
+    EM + soft assignment over the tiers (route: config.em_segsum,
+    em/em.py em_route);
   - write_csv emits rows in transcript-index order (PARITY.md dev. 2).
 
 Past FUSED_MAX_PADDED_READS, quantify streams (stream.py); both engines
@@ -26,8 +28,10 @@ quantify_sharded runs over a (data, index) mesh of rank processes
 (dist/), on the streamed engine with the index hash-range sharded.
 
 Posting expansion sizes each batch's event rows to its largest read, so
-unlike the JAX engine there are no tier widths, calibration passes or
-reruns to make the result exact.
+unlike the JAX engine the matcher has no tier widths, calibration passes
+or reruns to make the result exact.  The EM's class tables do keep the
+JAX engine's width tiers (em/classes.py): they cut the lanes each
+iteration's posterior sum runs over.
 """
 
 from __future__ import annotations
@@ -106,12 +110,14 @@ class QuantResult:
                     power of two (a regrouped batch counts again).  The
                     JAX engine counts its tier plan's or expansion
                     budget's lanes, so the two differ.
-      em_lanes      lanes of the EM's table: the equivalence-class table
-                    (past 1024 padded reads) or the per-read one.
-      em_width_max  the EM table's width.
+      em_lanes      lanes of the EM's tables, summed over the tiers
+                    (em_tables): the class tiers' (past 1024 padded
+                    reads) or the per-read rows'.
+      em_width_max  the widest table's width.
 
-    The last two equal the JAX package's where it builds one table of the
-    same width (the per-read table); its class tables are tiered apart.
+    The JAX package counts each tier at its padded row count, so its
+    em_lanes is at least the port's; em_width_max is the same where the
+    JAX package's narrow tier is not empty.
     """
 
     names: List[str]
@@ -156,8 +162,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# The EM's width tiers (em/classes.py), as in the JAX engine: classes with
+# at most _EM_NARROW_WIDTH candidates go to the narrow [*, 4] table, those
+# with up to _EM_MID_WIDTH to the mid [*, 8] one, wider ones to the [*, W]
+# one, and classes of exactly two candidates to the pair [*, 2] table.
+_EM_NARROW_WIDTH = 4
+_EM_MID_WIDTH = 8
+_EM_PAIR_WIDTH = 2
+
+
 def _fold_ok(config: QuantConfig, num_transcripts: int) -> bool:
-    """Is folding single-candidate classes out of the EM loop exact?
+    """Is folding single-candidate classes out of the EM loop asked for
+    (config.em_fold_singletons) and exact?
 
     A folded singleton assumes its E-step denominator pi[t]*count always
     exceeds em_epsilon.  Iteration 1 sees pi0 = 1/T (covered by
@@ -165,9 +181,39 @@ def _fold_ok(config: QuantConfig, num_transcripts: int) -> bool:
     epsilon < pseudocount) or, with pseudocount 0, >= the folded base.
     """
     eps = config.em_epsilon
-    if num_transcripts <= 0 or num_transcripts * eps >= 1.0:
+    if not config.em_fold_singletons or num_transcripts <= 0 or num_transcripts * eps >= 1.0:
         return False
     return eps < config.pseudocount or config.pseudocount == 0.0
+
+
+def em_tables(tbl_tid: torch.Tensor, tbl_score: torch.Tensor, config: QuantConfig, *, num_transcripts: int,
+              n_rows: int, row_weight: Optional[torch.Tensor] = None):
+    """The EM's working set (sketch_rna_tpu/pipeline.py _em_tables): the
+    [N, W] rows (rank-ordered; row_weight [N] or None for 1 each) as
+    equivalence classes in width tiers with the singletons folded
+    (em/classes.py build_class_tables), or, with
+    config.em_equivalence_classes off, the rows themselves split into a
+    narrow [*, 4] and a wide [*, W] table.  n_rows: the rows as the JAX
+    engine counts them (the fused engine's padded reads, a class
+    buffer's capacity); below 1024 the rows stay one table, as there.
+
+    Returns (tables, static_base, static_has), the static pair (None,
+    None) unless singletons fold.
+    """
+    W = tbl_tid.shape[1]
+    if config.em_equivalence_classes and n_rows >= 1024:
+        return build_class_tables(tbl_tid, tbl_score, num_transcripts=num_transcripts,
+                                  fold=_fold_ok(config, num_transcripts), n_rows=n_rows, row_weight=row_weight,
+                                  narrow_width=_EM_NARROW_WIDTH, mid_width=_EM_MID_WIDTH, pair_width=_EM_PAIR_WIDTH)
+    if W <= _EM_NARROW_WIDTH or n_rows < 1024:
+        return [(tbl_tid, tbl_score, row_weight)], None, None
+    wide = (tbl_score > 0).sum(dim=1) > _EM_NARROW_WIDTH
+    n = _EM_NARROW_WIDTH
+    if not bool(wide.any()):  # rank-ordered rows: the columns past n are zero
+        return [(tbl_tid[:, :n], tbl_score[:, :n], row_weight)], None, None
+    tables = [(tbl_tid[rows, :w], tbl_score[rows, :w], None if row_weight is None else row_weight[rows])
+              for rows, w in ((~wide, n), (wide, W))]
+    return [t for t in tables if t[0].shape[0]], None, None
 
 
 def sketch_match_step(
@@ -500,17 +546,13 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     W = min(pow2ceil(max(n_cand_max, 1)), config.candidate_capacity)
     tbl_tid = tbl_tid[:, :W]
     tbl_score = tbl_score[:, :W]
-    if n_padded >= 1024:
-        table, static_base, static_has = build_class_tables(
-            tbl_tid, tbl_score, num_transcripts=T, fold=_fold_ok(config, T)
-        )
-    else:
-        table, static_base, static_has = (tbl_tid, tbl_score, None), None, None
+    tables, static_base, static_has = em_tables(tbl_tid, tbl_score, config, num_transcripts=T, n_rows=n_padded)
     _sync(dev)
     timing["classes"] = time.perf_counter() - t0
 
-    sizes["em_lanes"], sizes["em_width_max"] = table[0].numel(), table[0].shape[1]
-    result = em_assign([table], static_base, static_has, index, config, num_reads=R, num_mapped=num_mapped,
+    sizes["em_lanes"] = sum(t[0].numel() for t in tables)
+    sizes["em_width_max"] = max(t[0].shape[1] for t in tables)
+    result = em_assign(tables, static_base, static_has, index, config, num_reads=R, num_mapped=num_mapped,
                        stats=host_stats, timing=timing)
     result.sizes = sizes
     return result

@@ -18,7 +18,8 @@ number of reads through a FIXED class buffer instead:
     block would not fit and, if it still would not, drains to the host;
     drained segments re-merge into global classes before the EM, so the
     result is exact at any class count;
-  - EM + assignment run over the merged classes.
+  - EM + assignment run over the merged classes, split into width tiers
+    (pipeline.em_tables).
 
 Device memory is O(buffer) and host memory one or two chunks, whatever
 the read count.  The JAX engine's tier calibration, pretail and
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from sketch_rna_tpu_torch.config import QuantConfig
-from sketch_rna_tpu_torch.em.classes import build_class_tables, group_rows
+from sketch_rna_tpu_torch.em.classes import group_rows
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex
 from sketch_rna_tpu_torch.io.packing import Packed2Reads, PackedReads, unpack_codes2
 from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
@@ -340,11 +341,12 @@ def classes_em(
     timing: Dict[str, float],
     group=None,
 ):
-    """Merge the buffers' classes into class tables and run the EM +
-    assignment, over `group` when the classes are one data shard's
+    """Merge the buffers' classes, tier the narrow buffer's and the wide
+    buffer's apart (pipeline.em_tables) and run the EM + assignment over
+    the tiers, over `group` when the classes are one data shard's
     (em/em.py).  stats gains stream_drains, stream_compactions and
     stream_classes (this process's buffers)."""
-    from sketch_rna_tpu_torch.pipeline import LOSS_KEYS, _fold_ok, _sync, em_assign
+    from sketch_rna_tpu_torch.pipeline import LOSS_KEYS, _sync, em_assign, em_tables
 
     buf, buf_w, stats = classes.narrow, classes.wide, classes.stats
     T = index.num_transcripts
@@ -358,23 +360,22 @@ def classes_em(
     t0 = time.perf_counter()
     W = min(pow2ceil(max(classes.n_cand_max, 1)), C)
     tid, score, weight = buf.merged(W)
+    tables, static_base, static_has = em_tables(tid, score, config, num_transcripts=T, n_rows=buf.m_cap,
+                                                row_weight=weight)
+    stats["stream_classes"] = int(tid.shape[0])
     if buf_w is not None:
         # The wide buffer's classes are disjoint from the narrow buffer's
-        # (more than nw candidates), so the two tables simply join.
+        # (more than nw >= 1 candidates, so none folds): their tiers join
+        # the narrow buffer's, as in the JAX engine.
         w_tid, w_score, w_weight = buf_w.merged(W)
         if w_tid.shape[0]:
-            pad = W - tid.shape[1]
-            tid = torch.cat([torch.nn.functional.pad(tid, (0, pad)), w_tid])
-            score = torch.cat([torch.nn.functional.pad(score, (0, pad)), w_score])
-            weight = torch.cat([weight, w_weight])
-    table, static_base, static_has = build_class_tables(
-        tid, score, num_transcripts=T, fold=_fold_ok(config, T), row_weight=weight
-    )
-    stats["stream_classes"] = int(tid.shape[0])
+            tables += em_tables(w_tid, w_score, config, num_transcripts=T, n_rows=buf_w.m_cap,
+                                row_weight=w_weight)[0]
+        stats["stream_classes"] += int(w_tid.shape[0])
     _sync(index.device)
     timing["classes"] = time.perf_counter() - t0
 
-    return em_assign([table], static_base, static_has, index, config, num_reads=classes.num_reads,
+    return em_assign(tables, static_base, static_has, index, config, num_reads=classes.num_reads,
                      num_mapped=classes.num_mapped, stats=stats, timing=timing, group=group)
 
 

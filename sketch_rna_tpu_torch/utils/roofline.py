@@ -152,6 +152,9 @@ def roofline(
               weight (8 bytes, em_width_max lanes a row at most), and does
               4 float operations a lane (a product, a sum, a scaling and
               an accumulation) at the float rate of em_dtype_bytes.
+              With width tiers, em_lanes / em_width_max is a lower bound
+              on the rows, so the bytes stay the least work and a share
+              stays at most what the card could reach.
 
     A share counts the least work, so it reads at most 1.0 on any card; a
     larger one is a miscount.  summary: the stage with the largest share,

@@ -174,25 +174,29 @@ def test_stage_chain_equals_step_and_jax_collect_pairs(problem, ks):
 
 @pytest.fixture(scope="module")
 def em_table(problem):
-    """The fused engine's class table of the 600 reads at k = 31."""
+    """The fused engine's EM tables of the 600 reads at k = 31 (batches of
+    512: 1,024 padded reads, so equivalence classes in width tiers)."""
     index = problem.indexes[(31,)]
-    (tid, score, weight), _, _ = profile_step_torch.class_tables(index, QuantConfig(batch_size=256), problem.codes,
-                                                                 problem.lengths)
-    return tid, score, weight, index.num_transcripts
+    tables, _, _ = profile_step_torch.class_tables(index, QuantConfig(batch_size=512), problem.codes,
+                                                   problem.lengths)
+    assert len(tables) > 1
+    return tables, index.num_transcripts
 
 
 @pytest.mark.parametrize("strategy", profile_em_scatter_torch.STRATEGIES)
 def test_em_strategy_equals_index_add_and_jax_iteration(em_table, strategy):
-    tid, score, weight, T = em_table
+    tables, T = em_table
     R = 600
-    fns, _, _ = profile_em_scatter_torch.strategies(tid.long().reshape(-1), T, (score > 0).reshape(-1))
+    flat_tid = torch.cat([t[0].long().reshape(-1) for t in tables])
+    fns, _, _ = profile_em_scatter_torch.strategies(flat_tid, T, torch.cat([(t[1] > 0).reshape(-1) for t in tables]))
     pi0 = torch.full((T,), 1.0 / T, dtype=torch.float64)
-    values = profile_step_torch.posteriors(tid.long(), score.double(), weight, pi0).reshape(-1)
+    values = profile_step_torch.flat_posteriors(tables, pi0)
     ps = fns[strategy](values)
     assert profile_em_scatter_torch.rel_err(ps, fns["index_add"](values)) <= 1e-12
     # one EM iteration on this sum (em/em.py's M-step) against the JAX package's
     pcf = torch.tensor(0.01, dtype=torch.float32)
     pi1 = (ps + (pcf / torch.tensor(float(R), dtype=torch.float32)).double()) + pcf.double()
+    tid, score, weight = profile_em_scatter_torch.single_layout(tables)  # the JAX function takes one table
     j_pi, j_it = jax_run_em_tables(jnp.asarray(tid.numpy()), jnp.asarray(score.numpy()), jnp.asarray(R, jnp.int32),
                                    num_transcripts=T, max_iterations=1, dtype="float64",
                                    weight=jnp.asarray(weight.numpy().astype(np.int32)))
@@ -201,8 +205,9 @@ def test_em_strategy_equals_index_add_and_jax_iteration(em_table, strategy):
 
 
 def test_em_scatter_profile_checks_and_chains(em_table):
-    tid, score, weight, T = em_table
-    out = profile_em_scatter_torch.profile_scatter(tid, score, weight, T, CPU, chained=True)
+    tables, T = em_table
+    out = profile_em_scatter_torch.profile_scatter(tables, T, CPU, chained=True)
+    assert out["lanes"] == sum(t[0].numel() for t in tables) and len(out["tables"]) == len(tables)
     assert set(out["strategies"]) == set(profile_em_scatter_torch.STRATEGIES)
     assert out["segsum_bit_stable"] and out["segsum_equals_plain"]
     assert all(s["device_ms"] is None and s["max_rel_err"] <= 1e-12 for s in out["strategies"].values())
