@@ -14,7 +14,9 @@ without printing its result line:
   device        torch / CUDA versions, the card's name and power limit;
   build         nvcc builds the kernels in csrc/, one process per source;
   kernels       K1 (fused sketch), K2 (multi-k fused sketch), K3 (kept
-                windows), K4 (row sort, int32) and K4-int64 against their
+                windows), K4 (row sort, int32), K4-int64 and E (posting
+                expansion: [B, S] runs of up to 5,000 lanes a row, widths
+                up to 131,072, empty rows and batches) against their
                 plain PyTorch versions on the card, bit for bit, over the
                 edges of their domains (K1 / K2 at 104, 152 and 1028
                 bases, fractions 0.05 and 0.9999, caps that overflow; K3
@@ -93,7 +95,12 @@ without printing its result line:
                 reference math in NumPy (oracle/): collect_pairs equals
                 oracle_sparse_chain, quantify's CSV rows oracle_quant's,
                 values within 5e-9 relative; the roofline lines of scale
-                and scale-multik (run here if those phases did not);
+                and scale-multik (run here if those phases did not); and
+                every problem's graph path (match_rows' default,
+                pipeline.match_scan: one host read a length group, the
+                batch steps replayed from CUDA graphs) equal to its eager
+                per-batch path, tables and stats, with the graphs it
+                captured and its peak device memory;
   fuzz          the oracle fuzz's trials 777000 .. 777047 on the card
                 (oracle/fuzz.py, as scripts/fuzz_oracle_torch.py runs
                 them), trial i in regime i mod 8 (fused one k, fused 2-3
@@ -160,16 +167,21 @@ without printing its result line:
                 float64 EM, fused at k = 31 and at ks (21, 31): timed after a
                 warm-up with the roofline line, no lost work, every batch
                 equal to the global-sort matcher (the top-C key types
+                printed) and the graph path equal to the eager per-batch
+                path (the graphs captured a quant and its peak memory
                 printed), the streamed engine within 1e-9 relative, at
                 k = 31 --em-segsum on within 1e-9; the first batch of each
                 through the kernels and the plain functions (equal tables),
-                K1 (k = 31) and K2 (ks 21, 31) timed there at [8192, 152];
+                K1 (k = 31) and K2 (ks 21, 31) timed there at [8192, 152],
+                and E on the k = 31 batch's posting runs (its bound from
+                that batch's events);
                 then 8,388,608 reads (~2.7 GB) from a FASTQ through the CLI
                 (the streamed route over the native scan on a background
                 thread: "native-lazy", the route of a file past 2 GiB), its
                 CSV equal to an in-process quantify_streamed of the same
                 codes;
-                K1, K2, K3, K4, K4-int64 and P each launched in the phase;
+                K1, K2, K3, K4, K4-int64, P and E each launched in the
+                phase;
   stages        the first per-stage device profile at GENCODE width,
                 through the profile scripts' functions
                 (scripts/profile_*_torch.py) on gencode's transcriptome,
@@ -193,8 +205,21 @@ without printing its result line:
                 torch.profiler: untraced and traced wall time, the
                 card's busy and idle share, the 15 largest operations'
                 device ms, launches and host operations per batch (K1,
-                K4 and P launched); one "[stages] {json}" line with the
-                card's name and power limit;
+                K4, P and E launched); match_scan per batch at k = 31
+                and (21, 31) (profile_step_torch's scan row: wall and
+                device ms, host operations, graphs a call, the
+                synchronizing calls); the traced quant's match stage
+                alone: at most one synchronize a length group plus one
+                (its stats) and at most 9.86 torch operations a batch, a
+                tenth of the per-batch route's 98.6 (PERF.md); the same
+                trace of a two-group input (half the reads 300 bases):
+                two groups, at most three synchronizes, and in both no
+                host-to-device copy from pageable memory; a group's
+                upload issued behind ~0.1 s of queued device work returns
+                in under half of it (pinned; a pageable copy of the
+                same rows beside it); one
+                "[stages] {json}" line with the card's name and power
+                limit;
   samples       examples/sample.{fa,fq}: refbin and npz indexes, a
                 two-sample quant with --tpm (TPM = numpy recompute), and an
                 EM checkpoint stopped after 2 iterations and resumed, equal
@@ -205,9 +230,11 @@ under torch.profiler last: device busy / idle share and time by item.
 
 A scale phase builds its index on the card, runs one warm-up and one
 timed quant (reads/s, stage seconds), counts kernel launches over the
-timed quant (every count set to 0 just before it: P must launch once a
-k and batch on scale, scale-multik, long-reads and stream-c3, and never
-on the sharded route), checks read-count conservation and zero dropped
+timed quant (every count set to 0 just before it: P and E must launch
+once a k and batch on scale and scale-multik, P on long-reads and
+stream-c3 and never on the sharded route; a replayed CUDA graph adds
+the launches its capture recorded), checks read-count conservation and
+zero dropped
 work, prints the timed run's roofline (utils/roofline.py, from its
 QuantResult.sizes and stage times; every share of peak at most 1.0) and
 holds the first batch's candidate tables against the plain functions on
@@ -216,7 +243,8 @@ the same tensors.
 Then one JSON line per kernel ({"kernels": [...]}: launches on the main
 path, device ms, plain ms, bound in ms and us with the bytes and
 operations behind it, share of bound, library_ms (torch.sort for K4 and
-the merge, the searchsorted probe for P, index_add_ for S), the shared
+the merge, the searchsorted probe for P, index_add_ for S; none for K1,
+K2, K3 and E), the shared
 functions' ms and, with --parent, the parent's),
 the nvidia-smi line of the card, and last {"ok": true, "device": {...}}.
 Imports no JAX.
@@ -312,6 +340,8 @@ KERNELS = {
     # sums segments in XLA.
     "P": ("bucket_lookup", "sketch_rna_tpu_torch/csrc/bucket_probe.cu", "sketch_rna_tpu/match/bucket_lookup.py:135"),
     "S": ("segsum_apply", "sketch_rna_tpu_torch/csrc/segsum.cu", "sketch_rna_tpu/em/segsum.py:114"),
+    # No TPU kernel expands: the JAX package's static-shaped expansion runs in XLA.
+    "E": ("row_expand", "sketch_rna_tpu_torch/csrc/expand.cu", "sketch_rna_tpu/match/rowmatch.py:74"),
 }
 
 
@@ -628,6 +658,7 @@ def phase_kernels(torch, results, ctx, parent=None):
             record(results, name, max_abs_err=0)
             del x, rows, got
         print(f"[kernels] {name} [B, W], B in (8192, 8191, 8191 at an offset, 1), W = 2 .. 16384: bit-equal")
+    _check_expand(torch, rng, results)
 
     # Device time per launch (torch.profiler; inputs cold in L2).
     print(f"[kernels] device ms per call, torch.profiler over {REPS} calls, plain / kernel / kernel / plain")
@@ -684,6 +715,51 @@ def phase_kernels(torch, results, ctx, parent=None):
         elif parent:
             line += f"; the parent ({parent.name}) does not time it"
         print(line)
+
+
+def _expand_runs(torch, rng, B, S, P):
+    """[B, S] posting runs into postings [P], made from rng: run lengths
+    0-6 with a quarter of the lanes masked out and a fifth of the rows
+    empty, starts inside postings, on the card."""
+    import numpy as np
+
+    length = rng.integers(0, 7, size=(B, S)) * (rng.random((B, S)) < 0.75)
+    length[rng.random(B) < 0.2] = 0
+    start = rng.integers(0, P - 6, size=(B, S)) * (length > 0)
+    return torch.from_numpy(start).to(DEVICE), torch.from_numpy(length).to(DEVICE)
+
+
+def _check_expand(torch, rng, results):
+    """E against row_expand_plain, bit for bit: [8192, 32] and [8191, 32]
+    runs at their widest row's width and at 8x it, one lane, one row,
+    rows past one tile of runs (3,000 and 5,000 runs a row, W up to
+    131,072), rows of no run, a batch of empty runs at W = MIN_WIDTH, and
+    runs from an offset."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.match.expand import row_expand, row_expand_plain
+    from sketch_rna_tpu_torch.match.row_sort import MIN_WIDTH
+    from sketch_rna_tpu_torch.match.rowmatch import expand_width
+
+    P = 100_000
+    post = torch.from_numpy(rng.integers(0, 10**6, size=P).astype(np.int32)).to(DEVICE)
+    cases = 0
+    for B, S in ((BATCH, 32), (BATCH - 1, 32), (1, 1), (64, 3000), (7, 5000), (100, 1), (5, 0)):
+        start, length = _expand_runs(torch, rng, B, S, P)
+        most = int(length.sum(dim=1).max()) if S else 0
+        for W in sorted({expand_width(most), 8 * expand_width(most)}):
+            for s, ln in ((start, length), (start[1:], length[1:])):
+                got, want = row_expand(s, ln, post, W), row_expand_plain(s, ln, post, W)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"E differs from row_expand_plain at [{s.shape[0]}, {S}] W={W}")
+                cases += 1
+    z = torch.zeros((BATCH, 32), dtype=torch.int64, device=DEVICE)
+    got = row_expand(z, z, post, MIN_WIDTH)
+    require(torch.equal(got, row_expand_plain(z, z, post, MIN_WIDTH)) and bool((got == 2**31 - 1).all()),
+            "E on a batch of empty runs")
+    record(results, "E", max_abs_err=0)
+    print(f"[kernels] E [B, S] -> [B, W]: {cases + 1} cases (S up to 5,000 runs a row, W up to 131,072, rows "
+          "without events, a batch without any, an offset): bit-equal to row_expand_plain")
 
 
 def _merge_rows(torch, gen, B, W, dtype):
@@ -1182,6 +1258,7 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     import numpy as np
 
     from sketch_rna_tpu_torch.pipeline import quantify
+    from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
 
     t0 = time.perf_counter()
     quantify(index, packed, config)
@@ -1189,6 +1266,7 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     print(f"[{tag}] warm-up quant {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    StepGraphs.captures = 0
     t0 = time.perf_counter()
     res = quantify(index, packed, config)
     torch.cuda.synchronize()
@@ -1197,7 +1275,7 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] quant {n_reads} reads in {quant_s:.3f} s: {n_reads / quant_s:.1f} reads/s; "
           f"stages (s) {json.dumps({k: round(v, 4) for k, v in res.timing.items()})}; "
-          f"peak device memory {peak} bytes")
+          f"peak device memory {peak} bytes; {StepGraphs.captures} CUDA graphs captured")
     print(f"[{tag}] EM iterations {res.em_iterations}; mapped reads {res.num_mapped}; stats {json.dumps(res.stats)}; "
           f"launches {json.dumps(launches)}")
     require(np.isfinite(res.pi).all() and np.isfinite(res.weighted_counts).all(), "non-finite EM output")
@@ -1282,7 +1360,7 @@ def phase_scale(torch, results, ctx):
     _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads, ctx)
     require(launches["K1"] > 0 and launches["K4"] > 0, f"the single-k path skipped a kernel: {launches}")
     require(launches["K2"] == launches["K3"] == 0, f"the single-k path ran a multi-k or long-read kernel: {launches}")
-    require(launches["P"] == launches["K1"], f"the probe did not launch P once a batch: {launches}")
+    require(launches["P"] == launches["K1"] == launches["E"], f"P or E did not launch once a batch: {launches}")
 
     L = 104  # round_up(100, 8): the width the quant path cut these reads to
     c, n, (cap,), rows = _first_batch(torch, "scale", index, config, codes, lengths, L)
@@ -1294,6 +1372,7 @@ def phase_scale(torch, results, ctx):
     print(f"[scale] first batch, device ms: K1 [{BATCH}, {L}] cap {cap}: kernel {k1[0]:.5f}, plain {k1[1]:.5f}; "
           f"K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.5f}, plain {k4[1]:.5f}")
     record(results, "K1", launches=launches["K1"])
+    record(results, "E", launches=launches["E"])
 
 
 def c3_problem(torch, ctx):
@@ -1342,7 +1421,8 @@ def phase_scale_multik(torch, results, ctx):
                                                            PackedReads(codes, lengths, []), config, n_reads, ctx)
     require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
             f"the multi-k path skipped a kernel: {launches}")
-    require(launches["P"] == len(ks) * launches["K2"], f"the probe did not launch P once a k and batch: {launches}")
+    require(launches["P"] == len(ks) * launches["K2"] == launches["E"],
+            f"P or E did not launch once a k and batch: {launches}")
     segsum_launches = phase_segsum_quant(torch, ctx)
 
     L = 104
@@ -1409,17 +1489,21 @@ def phase_segsum_quant(torch, ctx):
 def _crosscheck_batches(torch, tag, problem):
     """Every batch of a problem, as the fused engine forms it (match_rows,
     merged regroups included), through the row matcher (sketch_match_step:
-    K1 / K2, P, K4 and the merge) and through the global-sort matcher
+    K1 / K2, P, E, K4 and the merge) and through the global-sort matcher
     (match/candidates.py: the searchsorted probe, one flat expansion,
     torch.sort), both on the same kernel-made sketches: equal tid, score,
     mask and candidate_spilled, and no event dropped under a budget of the
-    batch's most events a read (from P's run lengths)."""
+    batch's most events a read (from P's run lengths).  Then the graph
+    path (match_rows' default: match_scan, its steps replayed from CUDA
+    graphs) on the same reads: tables and stats equal to that eager
+    per-batch run's; the graphs it captured and its peak memory."""
     import numpy as np
 
     from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
     from sketch_rna_tpu_torch.match.candidates import match_batch
     from sketch_rna_tpu_torch.pipeline import match_rows, sketch_match_step
     from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+    from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
 
     index, codes, lengths, config = problem["index"], problem["codes"], problem["lengths"], problem["config"]
     ks = tuple(index.kmer_lengths)
@@ -1449,15 +1533,28 @@ def _crosscheck_batches(torch, tag, problem):
         return row
 
     t0 = time.perf_counter()
-    _, _, n_padded, stats = match_rows(index, torch.from_numpy(codes), lengths, config, step=checked_step)
+    tid, score, n_padded, stats = match_rows(index, torch.from_numpy(codes), lengths, config, step=checked_step)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     require(done["batches"] == n_padded // config.batch_size == -(-lengths.size // config.batch_size),
             f"{tag}: {done['batches']} batches compared of {n_padded // config.batch_size}")
+    # The graph path (match_rows' default, match_scan) against that eager
+    # per-batch run: equal tables and stats, every batch.
+    StepGraphs.captures = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g_tid, g_score, g_padded, g_stats = match_rows(index, torch.from_numpy(codes), lengths, config)
+    torch.cuda.synchronize()
+    g_seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(torch.equal(g_tid, tid) and torch.equal(g_score, score) and g_padded == n_padded
+            and all(int(g_stats[k]) == int(stats[k]) for k in stats),
+            f"{tag}: the graph path's tables or stats differ from the eager per-batch path's")
     print(f"[crosscheck] {tag}: {lengths.size} reads, k = {ks}: all {done['batches']} batches' row-matcher tables "
           f"== the global-sort matcher's ({done['candidates']} candidates compared, 0 events dropped, "
           f"{done['first_passes']} per-k spills regrouped first, candidate_spilled {int(stats['candidate_spilled'])}) "
-          f"in {seconds:.1f} s")
+          f"in {seconds:.1f} s; the graph path (match_scan) == that eager path, tables and stats, every batch "
+          f"({StepGraphs.captures} graphs captured, {g_seconds:.3f} s, peak device memory {peak} bytes)")
 
 
 def _crosscheck_oracle(torch):
@@ -1596,7 +1693,7 @@ def _heavy_read_batch(torch, smi):
     memory near the same batch's without it, below that plus the
     [BATCH, W] int32 event row the heavy read would widen it to; the
     tables equal the plain functions' and, but for the heavy read's,
-    the light batch's."""
+    the light batch's; match_scan groups it the same way."""
     import numpy as np
 
     from sketch_rna_tpu_torch.config import QuantConfig
@@ -1604,7 +1701,7 @@ def _heavy_read_batch(torch, smi):
     from sketch_rna_tpu_torch.index.build import build_index
     from sketch_rna_tpu_torch.match.bucket_lookup import probe_index_plain
     from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort_plain, row_sort_wide
-    from sketch_rna_tpu_torch.pipeline import sketch_match_step
+    from sketch_rna_tpu_torch.pipeline import match_scan, sketch_match_step
     from sketch_rna_tpu_torch.sketch.fracminhash import sketch_all_k
     from sketch_rna_tpu_torch.utils.synth import fasta_records, sample_reads, synth_transcriptome
 
@@ -1644,6 +1741,12 @@ def _heavy_read_batch(torch, smi):
             "heavy-read batch: kernel tables differ from the plain functions'")
     require(all(torch.equal(getattr(got, f)[1:], getattr(light, f)[1:]) for f in ("tid", "score", "mask")),
             "heavy-read batch: the other reads' tables differ from the light batch's")
+    # The same batch through the graph path: its heavy batch groups in row
+    # slices eagerly, as the per-batch route does.
+    s_tid, s_score, _, s_stats = match_scan(index, torch.from_numpy(heavy), heavy_lengths, config)
+    require(torch.equal(s_tid, got.tid) and torch.equal(s_score, got.score)
+            and int(s_stats["candidate_spilled"]) == int(got.stats["candidate_spilled"]),
+            "heavy-read batch: match_scan's tables differ from sketch_match_step's")
     unsliced = BATCH * wide[0][1] * 4
     require(peak < light_peak + unsliced, f"heavy-read batch: peak {peak} B against {light_peak} B without the "
                                           f"heavy read: the batch widened")
@@ -1655,7 +1758,8 @@ def _heavy_read_batch(torch, smi):
 
 def phase_spill(torch, results):
     """Per-k table spill on the card: the batch regroups merged, equal to a
-    forced merged run; the regroup's sort_event_parts runs the merge kernel."""
+    forced merged run and, through the graph path, to the eager per-batch
+    path; the regroup's sort_event_parts runs the merge kernel."""
     import dataclasses
 
     import numpy as np
@@ -1664,7 +1768,7 @@ def phase_spill(torch, results):
     from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.index.build import build_index
     from sketch_rna_tpu_torch.io.packing import PackedReads
-    from sketch_rna_tpu_torch.pipeline import match_rows, quantify
+    from sketch_rna_tpu_torch.pipeline import match_rows, quantify, sketch_match_step
     from sketch_rna_tpu_torch.utils.synth import fasta_records
 
     rng = np.random.default_rng(3)
@@ -1680,6 +1784,11 @@ def phase_spill(torch, results):
     merged = dataclasses.replace(config, match_per_k_tables=False)
     tid, score, _, stats = match_rows(index, torch.from_numpy(codes), packed.lengths, config)
     m_tid, m_score, _, m_stats = match_rows(index, torch.from_numpy(codes), packed.lengths, merged)
+    e_tid, e_score, _, e_stats = match_rows(index, torch.from_numpy(codes), packed.lengths, config,
+                                            step=sketch_match_step)
+    require(torch.equal(tid, e_tid) and torch.equal(score, e_score)
+            and all(int(stats[k]) == int(e_stats[k]) for k in stats),
+            "the graph path's regrouped tables differ from the eager per-batch path's")
     require(int(stats["candidate_spilled_per_k"]) > 0, "the per-k tables did not spill")
     require(torch.equal(tid, m_tid) and torch.equal(score, m_score), "regrouped tables differ from the merged run")
     require(int(stats["candidate_spilled"]) == int(m_stats["candidate_spilled"]) > 0, "candidate_spilled differs")
@@ -2463,6 +2572,8 @@ def phase_gencode(torch, results, ctx):
         print(f"[{tag}] {name} {shape} (the 256-padded reads as the path cuts them): == its plain version; "
               f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, "
               f"{ops} operations), {100 * b_ms / ms:.1f}% of bound")
+        if ks == (31,):
+            _time_expand(torch, results, tag, index, c, n, caps, f)
         del c, n, got, want
 
     # File to CSV: a FASTQ of GENCODE_FILE_READS reads through the CLI.
@@ -2506,10 +2617,43 @@ def phase_gencode(torch, results, ctx):
 
     print(f"[gencode] launches on the phase's main-path runs (builds, timed quants, streamed runs, segsum, CLI): "
           f"{json.dumps(dict(path))}")
-    missing = [k for k in ("K1", "K2", "K3", "K4", "K4-int64", "P") if path[k] < 1]
+    missing = [k for k in ("K1", "K2", "K3", "K4", "K4-int64", "P", "E") if path[k] < 1]
     require(not missing, f"gencode: kernels never launched: {missing}")
     for name in results:
         record(results, name, launches_gencode=path[name])
+
+
+def _time_expand(torch, results, tag, index, c, n, caps, f):
+    """E on the first GENCODE batch's k = 31 posting runs (K1 and P on
+    the card), at the width the path gives them: equal to row_expand_plain,
+    then timed per launch against it (in turns), with its bound from this
+    batch's events."""
+    from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
+    from sketch_rna_tpu_torch.match.expand import row_expand, row_expand_plain
+    from sketch_rna_tpu_torch.match.rowmatch import expand_width
+    from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+    from sketch_rna_tpu_torch.utils.roofline import bound, expand_work
+
+    h, m, _ = sketch_reads(c, n, (31,), f, caps)[0]
+    start, length = probe_index(h, m, index.per_k[31])
+    totals = length.sum(dim=1)
+    W = expand_width(int(totals.max()))
+    post = index.per_k[31].postings
+    got, want = row_expand(start, length, post, W), row_expand_plain(start, length, post, W)
+    require(torch.equal(got, want), f"{tag}: E differs from row_expand_plain on the first batch's runs")
+    arg_sets = [(s, ln, post, W) for s, ln in rotation((start, length), 16 * start.numel())]
+    ms, plain_ms = in_turns(torch, row_expand, row_expand_plain, arg_sets, "row_expand_kernel")
+    B, S = start.shape
+    events = int(totals.clamp(max=W).sum())
+    nbytes, ops = expand_work(length, W)
+    b_ms, by = bound(nbytes, ops)
+    shape = f"[{B}, {S}] runs -> [{B}, {W}] events, k=31"
+    record(results, "E", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+           bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, library_ms=None, shape=shape,
+           timed="per launch", events=events, max_abs_err=0)
+    print(f"[{tag}] E {shape} (the first batch's runs, {events} events): == row_expand_plain; kernel {ms:.5f} ms, "
+          f"plain {plain_ms:.5f} ms, bound {b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, {ops} operations), "
+          f"{100 * b_ms / ms:.1f}% of bound")
 
 
 def gencode_problem(torch, ctx):
@@ -2540,7 +2684,13 @@ def phase_stages(torch, results, ctx, smi):
     sketch_match_step, which equals its plain route, S equals
     segsum_plain and gives the same bits twice (profile_scatter's
     checks), and the tiers hold fewer lanes than the single table, the
-    same nonzero ones."""
+    same nonzero ones.  match_scan (the graph path) is measured per batch
+    at both k sets, and the traced quant's match stage must synchronize
+    at most once a length group plus once (its stats) and dispatch at most
+    a tenth of the per-batch route's 98.6 torch operations a batch; so
+    must a two-group input's match stage synchronize, and neither may
+    upload from pageable memory (match_stage_trace); nor may a group's
+    upload wait for queued device work (upload_wait)."""
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -2563,7 +2713,7 @@ def phase_stages(torch, results, ctx, smi):
     g = gencode_problem(torch, ctx)
     codes, lengths = g["codes"], g["lengths"]
     T = len(g["seqs"])
-    line = {"card": smi, "transcripts": T, "reads": int(lengths.size), "step": {}, "em": {}}
+    line = {"card": smi, "transcripts": T, "reads": int(lengths.size), "step": {}, "scan": {}, "em": {}}
     tables = {}
     for ks, (_, index) in g["indexes"].items():
         tag = ",".join(map(str, ks))
@@ -2583,6 +2733,14 @@ def phase_stages(torch, results, ctx, smi):
             line["em"][tag] = profile_step_torch.profile_em(*tables[ks], int(lengths.size), T, config)
         except AssertionError as exc:
             require(False, f"stages ks {ks}: {exc}")
+        line["scan"][tag] = profile_step_torch.profile_scan(index, config, codes, lengths)
+        scan = line["scan"][tag]
+        print(f"[stages] ks {ks} match_scan over {scan['batches']} batches (codes on the card), per batch: wall "
+              f"{scan['wall_ms']:.4f} ms, device {scan['device_ms']:.4f} ms, host "
+              + json.dumps({k: round(v, 2) for k, v in scan["host_ops"].items()})
+              + f"; {scan['graphs_a_call']} graphs a call; synchronizing calls a call {json.dumps(scan['syncs_a_call'])}"
+              + "; one call's split (ms) " + json.dumps({where: {k: round(v, 2) for k, v in split.items()}
+                                                          for where, split in scan["split_ms"].items()}))
         em = line["em"][tag]
         print(f"[stages] ks {ks} [{c.shape[0]}, {c.shape[1]}]: chained stages == sketch_match_step == its plain "
               f"route; device ms {json.dumps({s: m['device_ms'] for s, m in line['step'][tag].items()})}; EM tables "
@@ -2663,10 +2821,107 @@ def phase_stages(torch, results, ctx, smi):
     print(f"[stages] fused quant of {q['reads']} reads at k = 31: {untraced:.4f} s untraced, {wall:.4f} s traced; "
           f"{q['device_ops']} device operations, busy {100 * share:.1f}% (idle {100 * (1 - share):.1f}%); "
           f"per batch " + json.dumps({k: round(v, 1) for k, v in q["host_ops_per_batch"].items()})
-          + f"; launches {json.dumps(q['launches'])}")
+          + f" (the per-batch route's, PERF.md: launch 89.5, memcpy 2.8, sync 2.4, torch_ops 98.6); "
+          f"launches {json.dumps(q['launches'])}")
+
+    # That quant's match stage alone, as _quantify_fused runs it (match_rows
+    # on the host codes, then its stats in one read): syncs a call and host
+    # operations a batch.  Then a two-group input (half the reads 300
+    # bases, padded to 512): the second group's upload follows the first
+    # group's queued work, and from pinned memory does not wait for it.
+    line["quant"]["match_stage"] = m = match_stage_trace(torch, index, codes, lengths, config, dev)
+    print(f"[stages] its match stage: {m['traced_s']:.4f} s traced, {m['syncs']:.0f} synchronizes "
+          f"({m['groups']} length group(s); by source {json.dumps(m['sync_sources'])}), per batch "
+          + json.dumps({k: round(v, 2) for k, v in m["host_ops_per_batch"].items()})
+          + f"; host-to-device copies {json.dumps(m['uploads'])}")
+    require(m["host_ops_per_batch"]["torch_ops"] <= 98.6 / 10,
+            f"stages: the match stage dispatched {m['host_ops_per_batch']['torch_ops']} torch operations a batch")
+    half = lengths.size // 2
+    long_codes, long_lengths = sample_reads(g["seqs"], half, 300, 304, seed=73)
+    two_codes = np.zeros((2 * half, 304), np.uint8)
+    two_codes[:half, : codes.shape[1]], two_codes[half:] = codes[:half], long_codes
+    two_lengths = np.concatenate([lengths[:half], long_lengths])
+    del long_codes, long_lengths
+    line["quant"]["match_stage_two_groups"] = m2 = match_stage_trace(torch, index, two_codes, two_lengths, config, dev)
+    print(f"[stages] a two-group match stage ({half} reads of 150 and {half} of 300 bases): {m2['traced_s']:.4f} s "
+          f"traced, {m2['syncs']:.0f} synchronizes ({m2['groups']} length groups; by source "
+          f"{json.dumps(m2['sync_sources'])}), per batch "
+          + json.dumps({k: round(v, 2) for k, v in m2["host_ops_per_batch"].items()})
+          + f"; host-to-device copies {json.dumps(m2['uploads'])}")
+    require(m2["groups"] == 2, f"stages: the two-group input formed {m2['groups']} length groups")
+    line["quant"]["upload_wait_ms"] = w = upload_wait(torch, index, codes, lengths, config, dev)
+    print(f"[stages] host ms to issue a length group's upload ({w['reads']} reads) behind {w['queued']:.2f} ms of "
+          f"queued device work: through pipeline._groups (pinned) {w['pinned']:.2f}, the same rows from pageable "
+          f"memory {w['pageable']:.2f}")
+    require(w["pinned"] < w["queued"] / 2,
+            f"stages: the group upload waited for the queued device work ({w['pinned']:.2f} of {w['queued']:.2f} ms)")
+    for what, stage in (("the match stage", m), ("the two-group match stage", m2)):
+        require(stage["syncs"] <= stage["groups"] + 1,
+                f"stages: {what} synchronized {stage['syncs']} times over {stage['groups']} length groups")
+        pageable = {k: v for k, v in stage["uploads"].items() if "Pageable" in k}
+        require(not pageable, f"stages: {what} uploaded from pageable memory: {pageable}")
+    del two_codes, two_lengths
     print(f"[stages] {json.dumps(line)}")
     del events, device_events
 
+
+def match_stage_trace(torch, index, codes, lengths, config, dev) -> dict:
+    """A fused quant's match stage alone, as _quantify_fused runs it
+    (match_rows on the host codes, then its stats in one read), warmed up
+    and then traced: its length groups, synchronizing calls (less an
+    empty trace's own: traced() ends in a synchronize, and so may the
+    profiler) by the operation they sit under, host operations a batch,
+    and the host-to-device copies' device records by kind (Kineto names
+    each by its source memory, pinned or pageable)."""
+    import collections
+
+    import profile_step_torch
+
+    from sketch_rna_tpu_torch.pipeline import length_groups, match_rows
+    from sketch_rna_tpu_torch.utils.profiling import host_ops, traced
+
+    def match_stage():
+        _, _, _, stats = match_rows(index, torch.from_numpy(codes), lengths, config)
+        return torch.stack(list(stats.values())).tolist()
+
+    match_stage()
+    events, wall = traced(match_stage, dev)
+    batches = sum(-(-(lengths[rows].size) // config.batch_size) for _, rows in length_groups(lengths, codes.shape[1]))
+    syncs = host_ops(events, 1)["sync"] - host_ops(traced(lambda: None, dev)[0], 1)["sync"]
+    return {"traced_s": wall, "groups": len(length_groups(lengths, codes.shape[1])), "batches": batches,
+            "syncs": syncs, "host_ops_per_batch": host_ops(events, batches),
+            "sync_sources": dict(collections.Counter(
+                e.cpu_parent.name if e.cpu_parent is not None else "(none)" for e in events
+                if e.name in profile_step_torch.SYNC_CALLS)),
+            "uploads": dict(collections.Counter(e.name for e in events
+                                                if e.device_type == torch.autograd.DeviceType.CUDA
+                                                and e.name.startswith("Memcpy HtoD")))}
+
+def upload_wait(torch, index, codes, lengths, config, dev, reads: int = 65536, cycles: int = 200_000_000) -> dict:
+    """Host ms to issue the first length group of `reads` host reads
+    through pipeline._groups (its cut, pinned staging and upload), and a
+    non_blocking upload of the same rows from pageable memory, each behind
+    ~0.1 s of queued device work (torch.cuda._sleep), and that work's own
+    ms: an upload that waits for the stream to drain takes at least as
+    long as the queued work on the host."""
+    import numpy as np
+
+    from sketch_rna_tpu_torch.pipeline import _groups
+
+    host, n = torch.from_numpy(codes[:reads]), lengths[:reads]
+    l_eff = next(_groups(index, host, n, config))[1]
+    pageable = torch.from_numpy(np.ascontiguousarray(codes[:reads, :l_eff]))
+    issue = {"queued": lambda: torch.cuda.synchronize(), "pinned": lambda: next(_groups(index, host, n, config)),
+             "pageable": lambda: pageable.to(dev, non_blocking=True)}
+    out = {"reads": reads}
+    for name, fn in issue.items():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        fn()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    return out
 
 def phase_samples():
     """Multi-sample, TPM, refbin and EM checkpoints on examples/."""

@@ -20,7 +20,18 @@ order:
   expand  match/rowmatch.row_expand_from_runs, one call a k, given the
           event sizes (the one host sync that reads them is left out);
   group   rowmatch.group_event_parts (K4 sorts, run counting, top-C);
-  step    the whole sketch_match_step, its host syncs included.
+  step    the whole sketch_match_step, its host syncs included;
+  scan    pipeline.match_scan over all --reads reads, already on the
+          device (the fused and streamed engines' match stage: one host
+          read a length group, the batch steps replayed from CUDA graphs
+          on a card, captured anew each call), reported per batch: wall
+          and device ms, launches and host operations, with the graphs
+          captured and the host calls that synchronized, by the torch
+          operation that made them; and one call split by the host
+          clock (the fastest of three), with the codes on the device and
+          on the host (the fused engine's case): until the size read,
+          the read's wait, from it to the call's return, and the
+          device's drain after it.
 
 Each stage reports (utils/profiling.measure) wall ms (wall_ms: best of
 3 means over 20 calls, synchronized), device ms (torch.profiler, the sum
@@ -61,6 +72,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 STAGES = ("sketch", "probe", "expand", "group", "step")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 READ_LEN = 150
 PAD_LEN = 256
 SEED = 7
@@ -155,6 +167,81 @@ def profile_stages(index, config, c, n, caps) -> dict:
         if not torch.equal(getattr(chained, field), getattr(whole, field)):
             raise AssertionError(f"the chained stages' {field} differs from sketch_match_step's")
     return {name: measure(fn, c.device) for name, fn in calls.items()}
+
+
+def profile_scan(index, config, codes, lengths) -> dict:
+    """match_scan over every read (codes on the index's device, as the
+    streamed engine hands them over), measured per batch: wall ms, device
+    ms, launches and host operations (utils/profiling.measure), the graphs
+    one call captures, and the synchronizing host calls of one traced call
+    by the torch operation they sit under."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from sketch_rna_tpu_torch.pipeline import match_scan
+    from sketch_rna_tpu_torch.utils.profiling import measure, traced
+    from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
+
+    host = torch.from_numpy(np.ascontiguousarray(codes))
+    c = host.to(index.device)
+
+    def scan():
+        return match_scan(index, c, lengths, config)
+
+    nb = -(-len(lengths) // config.batch_size)
+    StepGraphs.captures = 0
+    scan()
+    captures = StepGraphs.captures
+    got = measure(scan, index.device, calls=4)
+    events, _ = traced(scan, index.device)
+    syncs = collections.Counter(e.cpu_parent.name if e.cpu_parent is not None else "(none)" for e in events
+                                if e.name in SYNC_CALLS)
+    return {"batches": nb, "wall_ms": got["wall_ms"] / nb,
+            "device_ms": None if got["device_ms"] is None else got["device_ms"] / nb,
+            "launches": {k: v / nb for k, v in got["launches"].items()},
+            "host_ops": {k: v / nb for k, v in got["host_ops"].items()},
+            "graphs_a_call": captures,
+            "syncs_a_call": dict(syncs),
+            "split_ms": {"device_codes": scan_split(index, config, c, lengths),
+                         "host_codes": scan_split(index, config, host, lengths)}}
+
+
+def scan_split(index, config, codes, lengths, reps: int = 3) -> dict:
+    """One match_scan call split by the host clock, the fastest of `reps`
+    by total: to_read (from the call to its first size read: the groups'
+    cut and upload, then every batch's sketch and probe enqueued), read
+    (that read's wait), after_read (from it to the call's return: the
+    expansion and grouping enqueued) and drain (the device's work left
+    at the return, to a synchronize)."""
+    import time
+
+    from sketch_rna_tpu_torch.pipeline import match_scan
+    from sketch_rna_tpu_torch.utils.profiling import sync
+
+    marks = {}
+
+    def read(x, n):
+        marks.setdefault("read", time.perf_counter())
+        out = x.tolist()
+        marks.setdefault("back", time.perf_counter())
+        return out
+
+    best = None
+    for _ in range(reps):
+        marks.clear()
+        sync(index.device)
+        t0 = time.perf_counter()
+        match_scan(index, codes, lengths, config, read=read)
+        t1 = time.perf_counter()
+        sync(index.device)
+        t2 = time.perf_counter()
+        got = {"to_read": marks["read"] - t0, "read": marks["back"] - marks["read"], "after_read": t1 - marks["back"],
+               "drain": t2 - t1, "total": t2 - t0}
+        if best is None or got["total"] < best["total"]:
+            best = got
+    return {k: v * 1e3 for k, v in best.items()}
 
 
 def class_tables(index, config, codes, lengths):
@@ -253,7 +340,8 @@ def profile_size(n_transcripts: int, ks, args, device, card_info) -> dict:
     c, n, caps = first_batch(index, codes, lengths, args.batch)
     line = {"metric": "step_stages", "transcripts": n_transcripts, "ks": list(ks),
             "batch": list(c.shape), "caps": list(caps),
-            "stages": profile_stages(index, config, c, n, caps), "chain_equals_step": True}
+            "stages": profile_stages(index, config, c, n, caps), "chain_equals_step": True,
+            "scan": profile_scan(index, config, codes, lengths)}
     tables, base, has = class_tables(index, config, codes, lengths)
     line["em"] = profile_em(tables, base, has, args.reads, index.num_transcripts, config)
     line["card"] = card_info

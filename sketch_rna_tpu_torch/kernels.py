@@ -63,6 +63,8 @@ _SIGNATURES = {
     "merge_tiles_i64_launch": [_P, _P, _P, _I, _I, _P],
     # itemsize -> outputs a tile
     "merge_tile_outputs": [_I],
+    # start, length, postings, out_key, B, S, W, stream
+    "row_expand_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     # hashes, mask, packed, out_start, out_length, n, nb, mb, shift, stream
     "bucket_probe_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # values, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on,

@@ -11,9 +11,10 @@ as in sketch_rna_tpu/match/rowmatch.py:
     sum of its counts; the read keeps its top-C candidates by
     (score desc, tid asc).
 
-Shape on the GPU: each k's posting runs expand into one [B, W_k] row of
-tid keys per read, W_k the batch's largest per-read event total at k
-rounded up to a power of two, so no event is dropped; a batch that
+Shape on the GPU: each k's posting runs expand (kernel E,
+match/expand.py) into one [B, W_k] row of tid keys per read, W_k the
+batch's largest per-read event total at k rounded up to a power of two
+(expand_width), so no event is dropped; a batch that
 holds a read past 16384 events at some k groups in row slices
 (match_runs), so its rows hold no more lanes than a full batch at K4's
 widest.  A row sort (row_sort_wide: kernel K4, and past its 16384 lanes
@@ -23,6 +24,11 @@ row; the top-C selection is one more K4 sort of packed (rank, tid) keys,
 int32 where they fit and int64 past that.  Several ks group per k into top-2C
 tables that intersect (group_parts_per_k, the default), or as one merged
 K-wide row (the exact fallback when a per-k table spills).
+
+Once the widths are known, grouping reads nothing to the host and every
+shape in it is static, so pipeline.match_scan replays it from CUDA
+graphs (utils/step_graphs.py); event_size_tensor gives the widths'
+inputs on the device, and event_sizes reads them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from sketch_rna_tpu_torch.match.expand import row_expand
 from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, merge_sorted_runs, row_sort_wide
 
 I32_MAX = 2**31 - 1  # sentinel event key; sorts after every tid
@@ -52,7 +59,7 @@ class MatchResult:
     mask:  [B, C] bool validity.
     stats: overflow counters as 0-d int64 tensors.
     lanes: event lanes grouped, B x the summed per-k row widths, a host
-           count (pipeline.sketch_match_step sets it; 0 elsewhere).
+           count (pipeline.group_runs sets it; 0 elsewhere).
     """
 
     tid: torch.Tensor
@@ -79,17 +86,26 @@ def _read_local(x: torch.Tensor, n: int) -> List[int]:
     return x.tolist()
 
 
-def event_sizes(lengths: Sequence[torch.Tensor], read: Read = _read_local) -> List[Tuple[int, int]]:
-    """(largest per-read event total, event total) of each k's [B, S]
-    posting-run lengths, read in one host sync for every k.  read(x, n):
-    x on the host, its first n entries all-reduced MAX over an index
-    group (dist.collectives.read_max); by default x as it is."""
-    K = len(lengths)
+def event_size_tensor(lengths: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Each k's largest per-read event total of [B, S] posting-run
+    lengths, on their device with no host read: [K] int64 (B >= 1)."""
+    return torch.stack([length.sum(dim=1).max() for length in lengths])
+
+
+def event_sizes(lengths: Sequence[torch.Tensor], read: Read = _read_local) -> List[int]:
+    """event_size_tensor read to the host, in one host sync for every k:
+    each k's largest per-read event total.  read(x, n): x on the host,
+    its first n entries all-reduced MAX over an index group
+    (dist.collectives.read_max); by default x as it is."""
     if not lengths or lengths[0].shape[0] == 0:
-        return [(0, 0)] * K
-    totals = [length.sum(dim=1) for length in lengths]
-    flat = read(torch.stack([t.max() for t in totals] + [t.sum() for t in totals]), K)
-    return [(int(flat[i]), int(flat[K + i])) for i in range(K)]
+        return [0] * len(lengths)
+    return [int(m) for m in read(event_size_tensor(lengths), len(lengths))]
+
+
+def expand_width(max_events: int) -> int:
+    """A k's event row width for a batch whose largest per-read total is
+    max_events: the next power of two, at least MIN_WIDTH."""
+    return max(pow2ceil(max_events), MIN_WIDTH)
 
 
 def row_expand_from_runs(
@@ -97,30 +113,19 @@ def row_expand_from_runs(
     length: torch.Tensor,
     postings: torch.Tensor,
     *,
-    sizes: Optional[Tuple[int, int]] = None,
+    sizes: Optional[int] = None,
 ) -> torch.Tensor:
     """Expand posting runs [B, S] into one row of event keys per read:
     key [B, W] int32, the tids of the read's events in probe order,
-    INT32_MAX past them.  W = pow2ceil(largest per-read total), at least
-    2, so no event is dropped (the JAX engines stop at 16384 and count
-    the rest as expand_dropped; match_runs bounds the port's rows).
-    sizes: this k's event_sizes entry; without it one host sync reads it.
+    INT32_MAX past them.  W = expand_width(largest per-read total), so no
+    event is dropped (the JAX engines stop at 16384 and count the rest as
+    expand_dropped; match_runs bounds the port's rows).  The kernel E on
+    a CUDA tensor, its plain version on the CPU (match/expand.py).
+    sizes: this k's event_sizes entry (its largest per-read total);
+    without it one host sync reads it.
     """
-    B, S = start.shape
-    max_ev, n_ev = sizes if sizes is not None else event_sizes([length])[0]
-    W = max(pow2ceil(max_ev), MIN_WIDTH)
-    key = torch.full((B, W), I32_MAX, dtype=torch.int32, device=start.device)
-    if n_ev:
-        lens = length.reshape(-1)
-        runs = torch.arange(B * S, device=start.device)
-        run = torch.repeat_interleave(runs, lens, output_size=n_ev)
-        # Event e of run r sits `within` events into the run and `col`
-        # events into its read's row (runs keep their probe order).
-        first_event = torch.cumsum(lens, 0) - lens
-        within = torch.arange(n_ev, device=start.device) - first_event[run]
-        col = (torch.cumsum(length, dim=1) - length).reshape(-1)[run] + within
-        key[run // S, col] = postings[start.reshape(-1)[run] + within]
-    return key
+    max_ev = sizes if sizes is not None else event_sizes([length])[0]
+    return row_expand(start, length, postings, expand_width(max_ev))
 
 
 def row_slices(most: Sequence[int], batch_size: int) -> List[List[int]]:
@@ -144,18 +149,21 @@ def row_slices(most: Sequence[int], batch_size: int) -> List[List[int]]:
 def match_runs(
     runs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     batch_size: int,
-    group: Callable[[Sequence[Tuple[torch.Tensor, torch.Tensor]], List[Tuple[int, int]]], MatchResult],
+    group: Callable[[Sequence[Tuple[torch.Tensor, torch.Tensor]], List[int]], MatchResult],
     read: Read = _read_local,
+    sizes: Optional[List[int]] = None,
 ) -> MatchResult:
     """Group one batch's posting runs ((start, length) [B, S] per k) by
-    group(runs, sizes), sizes each k's event_sizes entry.  When a read's
+    group(runs, sizes), sizes each k's event_sizes entry (read here
+    unless given).  When a read's
     events pass MAX_WIDTH lanes at some k, the batch groups in
     row_slices, so its event rows stay as narrow as a full batch's at
     K4's widest row without dropping an event; the slices' tables and
     stats come back as one batch's.  read: as in event_sizes (every rank
     of an index group then cuts the same slices)."""
-    sizes = event_sizes([length for _, length in runs], read)
-    if max(m for m, _ in sizes) <= MAX_WIDTH:
+    if sizes is None:
+        sizes = event_sizes([length for _, length in runs], read)
+    if max(sizes) <= MAX_WIDTH:
         return group(runs, sizes)
     B = runs[0][0].shape[0]
     most = read(torch.stack([length.sum(dim=1) for _, length in runs]).amax(dim=0), B)
@@ -186,6 +194,18 @@ def _smallest(keys: torch.Tensor, C: int, sort: Sort) -> torch.Tensor:
         keys = sort(keys.reshape(-1, MAX_WIDTH))[:, :keep].reshape(B, -1)
         W = keys.shape[1]
     return sort(keys)[:, :C]
+
+
+def chain_passes(count: torch.Tensor, best: torch.Tensor, chain_fraction: float) -> torch.Tensor:
+    """count >= chain_fraction * best, lane by lane: in integers, count * q
+    >= best * p, where a small rational p / q equals the fraction, else in
+    float32 as the reference compares.  The float path's factor is filled
+    on the device (no host copy)."""
+    p, q = _fraction_compare_params(chain_fraction)
+    if q > 0:
+        return count * q >= best * p
+    f32 = torch.full((), chain_fraction, dtype=torch.float32, device=count.device)
+    return count.float() >= f32 * best.float()
 
 
 def _top_c_select(
@@ -284,18 +304,11 @@ def row_events_to_candidates(
     # Count of each (tid, k) run, live at the run's END lane.
     start_pos = torch.cummax(torch.where(is_start, i_idx, -1), dim=1).values
     cnt_end = i_idx - start_pos + 1
-    p, q = _fraction_compare_params(chain_fraction)
-    f32 = torch.tensor(chain_fraction, dtype=torch.float32, device=keym.device)
-
-    def passes(count, best):
-        if q > 0:
-            return count * q >= best * p
-        return count.float() >= f32 * best.float()
 
     if K == 1:
         tid = keym
         score = torch.where(is_end, cnt_end, 0)
-        meets = is_end & passes(score, score.max(dim=1, keepdim=True).values)
+        meets = is_end & chain_passes(score, score.max(dim=1, keepdim=True).values, chain_fraction)
     else:
         # A tid's <= K runs are adjacent after the sort.  A run passes at
         # its END lane against its k's best count; a tid group meets iff
@@ -309,7 +322,7 @@ def row_events_to_candidates(
         mk = maxk[0][:, None].expand(B, W)
         for ki in range(1, K):
             mk = torch.where(kid == ki, maxk[ki][:, None], mk)
-        ok_run = is_end & passes(cnt_end, mk)
+        ok_run = is_end & chain_passes(cnt_end, mk, chain_fraction)
         k_required = sum((m > 0).long() for m in maxk)
         is_tstart = valid & (tid != _shift_right(tid, -1))
         is_tend = valid & (tid != _shift_left(tid, I32_MAX))

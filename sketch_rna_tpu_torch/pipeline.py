@@ -10,8 +10,11 @@ src/main.cpp:165-197 in the reference):
   - each batch of `batch_size` reads is sketched for every k (kernels
     K1/K2, or K3 + K4 for reads past 1024 windows; sketch/dispatch.py),
     probed in each k's bucket table (kernel P, match/bucket_lookup.py),
-    expanded into one event row per read and k, and grouped into
-    top-C candidates (kernel K4) — match/rowmatch.py.  Several ks group
+    expanded into one event row per read and k (kernel E,
+    match/expand.py), and grouped into top-C candidates (kernel K4) —
+    match/rowmatch.py.  match_scan, the JAX engine's counterpart, does
+    it with one host read a length group, replaying each batch's steps
+    from CUDA graphs on a card (utils/step_graphs.py).  Several ks group
     per k and intersect; a batch where a per-k table spilled is grouped
     again in merged mode, which truncates only the final set;
   - the [N, C] tables narrow to the widest candidate set, collapse into
@@ -37,6 +40,7 @@ iteration's posterior sum runs over.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -51,17 +55,22 @@ from sketch_rna_tpu_torch.em.em import assign_reads_tables, em_route, run_em_tab
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex, IndexArtifact
 from sketch_rna_tpu_torch.io.packing import PackedReads
 from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
-from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
+from sketch_rna_tpu_torch.match.expand import row_expand
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort_wide
 from sketch_rna_tpu_torch.match.rowmatch import (
     MatchResult,
+    Read,
+    _read_local,
+    event_size_tensor,
+    expand_width,
     group_event_parts,
     match_runs,
     pow2ceil,
-    row_expand_from_runs,
 )
-from sketch_rna_tpu_torch.sketch.dispatch import sketch_ops, sketch_reads
+from sketch_rna_tpu_torch.sketch.dispatch import fused_groups, sketch_ops, sketch_reads
 from sketch_rna_tpu_torch.utils.profiling import maybe_trace
 from sketch_rna_tpu_torch.utils.roofline import probe_shape_bytes
+from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
 from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 
 log = logging.getLogger(__name__)
@@ -216,6 +225,32 @@ def em_tables(tbl_tid: torch.Tensor, tbl_score: torch.Tensor, config: QuantConfi
     return [t for t in tables if t[0].shape[0]], None, None
 
 
+def group_runs(runs: Sequence[Tuple[torch.Tensor, torch.Tensor]], widths: Sequence[int], index: DeviceIndex,
+               config: QuantConfig, *, sort: Callable[[torch.Tensor], torch.Tensor] = row_sort_wide) -> MatchResult:
+    """Expand each k's posting runs ((start, length) [B, S]) into [B, W_k]
+    event rows (kernel E), W_k = widths[k], and group them into top-C
+    candidates (config.match_per_k_tables picks the K > 1 mode).  Reads
+    nothing to the host: at fixed widths its shapes are static."""
+    ks = tuple(index.kmer_lengths)
+    parts = [row_expand(start, length, index.per_k[k].postings, W) for (start, length), k, W in zip(runs, ks, widths)]
+    res = group_event_parts(
+        parts,
+        chain_fraction=config.chain_fraction,
+        candidate_capacity=config.candidate_capacity,
+        num_transcripts=index.num_transcripts,
+        per_k_tables=config.match_per_k_tables,
+        sort=sort,
+    )
+    res.lanes = sum(key.numel() for key in parts)
+    return res
+
+
+def _grouper(index: DeviceIndex, config: QuantConfig, sort: Callable[[torch.Tensor], torch.Tensor] = row_sort_wide):
+    """match_runs' group: group_runs at each k's width for its largest
+    per-read event total."""
+    return lambda runs, most: group_runs(runs, [expand_width(m) for m in most], index, config, sort=sort)
+
+
 def sketch_match_step(
     codes: torch.Tensor,
     lengths: torch.Tensor,
@@ -228,9 +263,11 @@ def sketch_match_step(
     lookup: Callable = probe_index,
 ) -> MatchResult:
     """One batch: sketch every k of the index, probe each k's bucket
-    table, expand, group into top-C candidates (config.match_per_k_tables
-    picks the K > 1 mode); a read past 16384 events at some k groups in
-    a row slice of its own (match_runs).
+    table, read the event sizes (one host sync), expand and group into
+    top-C candidates (group_runs); a read past 16384 events at some k
+    groups in a row slice of its own (match_runs).  The per-batch route
+    (match_rows with a step); match_scan runs the same functions with one
+    host read a length group.
 
     sketch / sort / lookup: the kernels by default (sketch_reads, K4 and
     past its widest row the merge kernel, the bucket probe P); their
@@ -244,22 +281,7 @@ def sketch_match_step(
     ks = tuple(index.kmer_lengths)
     sketches = sketch(codes, lengths, ks, config.sketch_fraction, sketch_caps)
     runs = [lookup(h, m, index.per_k[k]) for (h, m, _), k in zip(sketches, ks)]
-
-    def group(runs, sizes):
-        parts = [row_expand_from_runs(start, length, index.per_k[k].postings, sizes=size)
-                 for (start, length), k, size in zip(runs, ks, sizes)]
-        res = group_event_parts(
-            parts,
-            chain_fraction=config.chain_fraction,
-            candidate_capacity=config.candidate_capacity,
-            num_transcripts=index.num_transcripts,
-            per_k_tables=config.match_per_k_tables,
-            sort=sort,
-        )
-        res.lanes = sum(key.numel() for key in parts)
-        return res
-
-    res = match_runs(runs, config.batch_size, group)
+    res = match_runs(runs, config.batch_size, _grouper(index, config, sort))
     res.stats["sketch_overflow"] = sum(ov for _, _, ov in sketches)
     res.stats["expand_dropped"] = torch.zeros((), dtype=torch.int64, device=codes.device)
     return res
@@ -269,24 +291,100 @@ def length_groups(lengths: np.ndarray, padded_len: int) -> List[Tuple[int, Union
     """The reads' padded-length groups, as the JAX engine forms them:
     (pad, rows) in ascending pad, pad a power of two >= 256 cut to
     padded_len, rows a slice of every read when there is one group."""
+    lengths = np.asarray(lengths)
+    if lengths.size and int(lengths.max()) <= 256:  # every read pads to 256 (a million reads' pads cost ~20 ms)
+        return [(256, slice(None))]
     pad_of = np.maximum(256, 1 << np.ceil(np.log2(np.maximum(lengths, 1))).astype(np.int64))
     pads = np.minimum(pad_of, max(int(padded_len), 256))
-    unique_pads = sorted(set(pads.tolist()))
+    unique_pads = np.unique(pads).tolist()
     if len(unique_pads) == 1:
         return [(unique_pads[0], slice(None))]
     return [(pad, np.flatnonzero(pads == pad)) for pad in unique_pads]
 
 
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """x copied into page-locked host memory (torch's caching host
+    allocator, which keeps the block until the copies that read it end)."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x)
+    return out
+
+
+def _groups(index: DeviceIndex, codes: torch.Tensor, lengths_np: np.ndarray, config: QuantConfig):
+    """Each length group (length_groups, in ascending pad) on the index's
+    device: (rows, l_eff, codes [rows, l_eff] uint8, lengths [rows] int32,
+    each k's sketch capacity at l_eff).  Host rows bound for a card are
+    staged in pinned memory, so their upload is an asynchronous copy that
+    queues behind the device's work: from pageable memory the copy would
+    first wait for the stream to drain, a host round trip a group that no
+    count of synchronizing calls shows."""
+    ks = tuple(index.kmer_lengths)
+    pin = index.device.type == "cuda" and codes.device.type == "cpu"
+    for pad, rows in length_groups(lengths_np, codes.shape[1]):
+        n_rows = int(lengths_np[rows].size)
+        width = min(pad, codes.shape[1])
+        l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), max(ks)), 8))
+        sel = rows if isinstance(rows, slice) else torch.from_numpy(rows).to(codes.device)
+        group, group_lengths = codes[sel, :l_eff], torch.from_numpy(lengths_np[rows].astype(np.int32))
+        if pin:
+            group, group_lengths = _pinned(group), _pinned(group_lengths)
+        yield (n_rows, l_eff, group.contiguous().to(index.device, non_blocking=True),
+               group_lengths.to(index.device, non_blocking=True),
+               tuple(config.sketch_capacity_for(k, l_eff) for k in ks))
+
+
+_SPILLED, _SPILLED_PER_K = STAT_KEYS.index("candidate_spilled"), STAT_KEYS.index("candidate_spilled_per_k")
+
+
+def _stat_row(stats: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A batch's stats as one [len(STAT_KEYS)] int64 row."""
+    return torch.stack([stats[key].to(torch.int64) for key in STAT_KEYS])
+
+
+@dataclasses.dataclass
+class _Group:
+    """One length group's batches, as both match routes fill them: their
+    inputs (`batch` reads each; match_scan pads the last one to that with
+    empty reads), tables [nb, 2, batch, C] int32 (tid, score) and stats
+    [nb, len(STAT_KEYS)] int64 (_stat_row)."""
+
+    n_rows: int
+    batch: int
+    caps: Tuple[int, ...]
+    inputs: List[Tuple[torch.Tensor, torch.Tensor]]
+    tables: torch.Tensor
+    stats: torch.Tensor
+
+    @classmethod
+    def alloc(cls, n_rows: int, batch: int, caps: Tuple[int, ...], inputs, C: int, device) -> "_Group":
+        nb = len(inputs)
+        return cls(n_rows, batch, caps, inputs, torch.empty((nb, 2, batch, C), dtype=torch.int32, device=device),
+                   torch.empty((nb, len(STAT_KEYS)), dtype=torch.int64, device=device))
+
+    def real(self, b: int) -> int:
+        """Reads of batch b that are not padding."""
+        return min(self.batch, self.n_rows - b * self.batch)
+
+    def put(self, b: int, res: MatchResult) -> None:
+        """Batch b's tables and stats from the MatchResult of its real reads."""
+        real = self.real(b)
+        self.tables[b, 0, :real], self.tables[b, 1, :real] = res.tid, res.score
+        self.stats[b] = _stat_row(res.stats)
+
+
 def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig,
-               step: Callable[..., MatchResult] = sketch_match_step, sizes: Optional[Dict[str, int]] = None):
+               step: Optional[Callable[..., MatchResult]] = None, sizes: Optional[Dict[str, int]] = None):
     """Candidate tables of every read, grouped by padded length as the
     JAX engine groups them (length_groups).
 
-    step: what matches one batch, with sketch_match_step's first five
-    parameters (the sharded engine's gathers events over the index
-    group).  The batches and their order depend on the reads alone, in
-    ascending order of padded length: ranks that hold the same reads run
-    the same sequence of steps.
+    step: None, the default, runs match_scan (one host read a length
+    group, the batch steps replayed from CUDA graphs on a card).  Else
+    what matches one batch, with sketch_match_step's first five
+    parameters, called batch by batch (the sharded engine's gathers events
+    over the index group; sketch_match_step itself is the per-batch
+    route, which match_scan equals).  The batches and their order depend
+    on the reads alone, in ascending order of padded length: ranks that
+    hold the same reads run the same sequence of steps.
 
     codes: [N, L] uint8 on the host or already on the index's device;
     each group's rows, cut to the group's width, move to the device once.
@@ -296,47 +394,159 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     receives QuantResult.sizes' match keys (the step's tables must carry
     `lanes`, as sketch_match_step's do).
     """
-    ks = tuple(index.kmer_lengths)
-    dev = index.device
+    if step is None:
+        return match_scan(index, codes, lengths, config, sizes=sizes)
     B = config.batch_size
-    lengths_np = np.asarray(lengths)
-    results: List[MatchResult] = []
-    batches = []  # (codes, lengths, caps) of each result, to regroup it
-    n_padded = 0
-    for pad, rows in length_groups(lengths_np, codes.shape[1]):
-        n_rows = int(lengths_np[rows].size)
-        width = min(pad, codes.shape[1])
-        l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), max(ks)), 8))
-        sel = rows if isinstance(rows, slice) else torch.from_numpy(rows).to(codes.device)
-        group = codes[sel, :l_eff].contiguous().to(dev)
-        group_lengths = torch.from_numpy(lengths_np[rows].astype(np.int32)).to(dev)
-        caps = tuple(config.sketch_capacity_for(k, l_eff) for k in ks)
+    groups: List[_Group] = []
+    n_padded = lanes = 0
+    for n_rows, l_eff, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
         n_padded += _round_up(n_rows, B)
-        for b0 in range(0, n_rows, B):
-            c, n = group[b0 : b0 + B], group_lengths[b0 : b0 + B]
-            results.append(step(c, n, index, config, caps))
-            batches.append((c, n, caps))
+        inputs = list(zip(group.split(B), group_lengths.split(B)))
+        g = _Group.alloc(n_rows, min(B, n_rows), caps, inputs, config.candidate_capacity, index.device)
+        groups.append(g)
+        for b, (c, n) in enumerate(inputs):
+            res = step(c, n, index, config, caps)
+            g.put(b, res)
+            lanes += res.lanes
             if sizes is not None:
                 _count_batch(sizes, index, c.shape[0], l_eff, caps)
-    if len(ks) > 1 and config.match_per_k_tables:
-        # A per-k table that spilled makes its batch's intersection
-        # inexact: group those batches again as merged K-wide rows, which
-        # give the tables of the JAX engine's whole-run merged rerun.
-        spilled = torch.stack([r.stats["candidate_spilled_per_k"] for r in results]).tolist()
+    return _match_tables(groups, index, config, step, lanes, n_padded, sizes)
+
+
+def _match_tables(groups: List[_Group], index: DeviceIndex, config: QuantConfig, regroup: Callable[..., MatchResult],
+                  lanes: int, n_padded: int, sizes: Optional[Dict[str, int]], read: Read = _read_local):
+    """The tail both match routes share.  At K > 1 with per-k tables, a
+    per-k table that spilled makes its batch's intersection inexact: one
+    read of every batch's spill count, and the batches that spilled group
+    again as merged K-wide rows (regroup: the route's batch step), which
+    give the tables of the JAX engine's whole-run merged rerun; a batch
+    keeps its per-k spill count and takes the rerun's candidate_spilled
+    (its other stats are the sketch's, the same either way).  Then every
+    group's tables in order, n_padded, and the stats summed on the device;
+    `lanes` (plus the reruns') goes to sizes["group_lanes"]."""
+    if len(index.kmer_lengths) > 1 and config.match_per_k_tables:
+        where = [(g, b) for g in groups for b in range(len(g.inputs))]
+        spilled = read(torch.cat([g.stats[:, _SPILLED_PER_K] for g in groups]), len(where))
         merged = dataclasses.replace(config, match_per_k_tables=False)
         for i in np.flatnonzero(spilled):
-            c, n, caps = batches[i]
-            redo = step(c, n, index, merged, caps)
-            redo.stats["candidate_spilled_per_k"] = results[i].stats["candidate_spilled_per_k"]
-            redo.lanes += results[i].lanes
-            results[i] = redo
+            g, b = where[i]
+            real = g.real(b)
+            c, n = (x[:real] for x in g.inputs[b])
+            redo = regroup(c, n, index, merged, g.caps)
+            g.tables[b, 0, :real], g.tables[b, 1, :real] = redo.tid, redo.score
+            g.stats[b, _SPILLED] = redo.stats["candidate_spilled"]
+            lanes += redo.lanes
         if any(spilled):
             log.info("per-k candidate tables spilled in %d of %d batches; regrouped them merged",
-                     int(np.count_nonzero(spilled)), len(results))
+                     int(np.count_nonzero(spilled)), len(spilled))
     if sizes is not None:
-        sizes["group_lanes"] = sizes.get("group_lanes", 0) + sum(r.lanes for r in results)
-    stats = {key: sum(r.stats[key] for r in results) for key in STAT_KEYS}
-    return torch.cat([r.tid for r in results]), torch.cat([r.score for r in results]), n_padded, stats
+        sizes["group_lanes"] = sizes.get("group_lanes", 0) + lanes
+    C = config.candidate_capacity
+    tid = torch.cat([g.tables[:, 0].reshape(-1, C)[: g.n_rows] for g in groups])
+    score = torch.cat([g.tables[:, 1].reshape(-1, C)[: g.n_rows] for g in groups])
+    total = torch.stack([g.stats.sum(dim=0) for g in groups]).sum(dim=0)
+    return tid, score, n_padded, dict(zip(STAT_KEYS, total.unbind(0)))
+
+
+def _unpack_runs(flat: torch.Tensor, B: int, caps: Sequence[int]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each k's (start, length) [B, S_k] views of a phase-1 row."""
+    runs, o = [], 0
+    for S in caps:
+        runs.append((flat[o : o + B * S].view(B, S), flat[o + B * S : o + 2 * B * S].view(B, S)))
+        o += 2 * B * S
+    return runs
+
+
+def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig, *,
+               sizes: Optional[Dict[str, int]] = None, read: Read = _read_local):
+    """match_rows' default route, the counterpart of the JAX package's
+    match_scan (sketch_rna_tpu/pipeline.py, one lax.scan a length group
+    with no host round trip between batches).  Per length group:
+
+      1. every batch (the last padded to a whole batch with empty reads;
+         a group of fewer reads than a batch is one batch of its size)
+         is sketched (K1 / K2, or K3 past 1024 windows) and probed (P),
+         and each k's largest per-read event total reduced on the device
+         (event_size_tensor); the runs stay on the device;
+      2. one host read of every batch's sizes (read(x, n), as in
+         rowmatch.event_sizes);
+      3. every batch is expanded (E) and grouped at its widths
+         (group_runs); a batch with a read past MAX_WIDTH events at some
+         k groups in row slices, eagerly (rowmatch.match_runs).
+
+    On a card, steps 1 and 3 replay CUDA graphs keyed by their static
+    shapes (utils/step_graphs.py); a group whose sketch takes K3 runs step
+    1 eagerly (K3 reads its kept count to the host).  The per-k spill
+    regroup and the tables' assembly are match_rows' (_match_tables, with
+    sketch_match_step as the regroup).  Tables, row order, the padded
+    count, stats and sizes equal the per-batch route's (match_rows with
+    sketch_match_step) exactly.
+    """
+    ks = tuple(index.kmer_lengths)
+    K = len(ks)
+    B, C = config.batch_size, config.candidate_capacity
+    graphs = StepGraphs(index.device)
+    groups: List[_Group] = []
+    n_padded = lanes = 0
+
+    def sketch_probe(c, n, caps):
+        sketches = sketch_reads(c, n, ks, config.sketch_fraction, caps)
+        runs = [probe_index(h, m, index.per_k[k]) for (h, m, _), k in zip(sketches, ks)]
+        overflow = sum(ov for _, _, ov in sketches).to(torch.int64).reshape(1)
+        return torch.cat([x.reshape(-1) for run in runs for x in run]
+                         + [event_size_tensor([length for _, length in runs]), overflow])
+
+    def with_sketch_stats(res, flat):
+        res.stats["sketch_overflow"] = flat[-1]
+        res.stats["expand_dropped"] = torch.zeros((), dtype=torch.int64, device=flat.device)
+        return res
+
+    def expand_group(flat, rows, caps, widths):
+        res = with_sketch_stats(group_runs(_unpack_runs(flat, rows, caps), widths, index, config), flat)
+        return torch.stack([res.tid, res.score]), _stat_row(res.stats)
+
+    for n_rows, l_eff, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
+        n_padded += _round_up(n_rows, B)
+        Bg = min(B, n_rows)
+        inputs = list(zip(group.split(Bg), group_lengths.split(Bg)))
+        if n_rows % Bg:  # the last batch, padded with empty reads: the same shapes as the rest
+            c, n = inputs[-1]
+            inputs[-1] = (torch.nn.functional.pad(c, (0, 0, 0, Bg - c.shape[0])),
+                          torch.nn.functional.pad(n, (0, Bg - n.shape[0])))
+        g = _Group.alloc(n_rows, Bg, caps, inputs, C, index.device)
+        groups.append(g)
+        # Phase 1: sketch + probe + event sizes, every batch, into one
+        # [nb, F] table.  K3 reads its kept count to the host, so a group
+        # that takes it runs eagerly.
+        runs = torch.empty((len(inputs), 2 * Bg * sum(caps) + K + 1), dtype=torch.int64, device=index.device)
+        captured = sum(map(len, fused_groups(l_eff, ks))) == K
+        fn = functools.partial(sketch_probe, caps=caps)
+        for row, (c, n) in zip(runs.unbind(0), inputs):
+            row.copy_(graphs.run(("sketch", Bg, l_eff, caps), fn, c, n) if captured else fn(c, n))
+        # One host read of every batch's sizes.
+        o = 2 * Bg * sum(caps)
+        most_all = read(runs[:, o : o + K].reshape(-1), len(inputs) * K)
+        # Phase 2: expand + group at each batch's widths.
+        for b, (row, table, stat) in enumerate(zip(runs.unbind(0), g.tables.unbind(0), g.stats.unbind(0))):
+            most = most_all[b * K : (b + 1) * K]
+            real = g.real(b)
+            if sizes is not None:
+                _count_batch(sizes, index, real, l_eff, caps)
+            if max(most) <= MAX_WIDTH:
+                widths = tuple(expand_width(m) for m in most)
+                t, st = graphs.run(("group", Bg, caps, widths),
+                                   functools.partial(expand_group, rows=Bg, caps=caps, widths=widths), row)
+                table.copy_(t)
+                stat.copy_(st)
+                lanes += real * sum(widths)
+                continue
+            # A read past K4's widest row: row slices, eagerly, over the real reads.
+            part = [(start[:real], length[:real]) for start, length in _unpack_runs(row, Bg, caps)]
+            res = with_sketch_stats(match_runs(part, B, _grouper(index, config), read, sizes=list(most)), row)
+            g.put(b, res)
+            lanes += res.lanes
+        del runs
+    return _match_tables(groups, index, config, sketch_match_step, lanes, n_padded, sizes, read)
 
 
 def _count_batch(sizes: Dict[str, int], index: DeviceIndex, rows: int, width: int, caps: Sequence[int]) -> None:
@@ -532,7 +742,7 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     sizes: Dict[str, int] = {}
     tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, config,
                                                      sizes=sizes)
-    host_stats = {key: int(v) for key, v in stats.items()}
+    host_stats = dict(zip(stats, torch.stack(list(stats.values())).tolist()))  # one read
     for key in LOSS_KEYS:
         if host_stats[key]:
             log.warning("capacity overflow during matching: %s=%d", key, host_stats[key])

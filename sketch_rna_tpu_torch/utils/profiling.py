@@ -20,7 +20,8 @@ The timing helpers work on an explicit device:
   busy_share       the union of a trace's device intervals over a wall time;
   device_ms_by_name  a trace's device time summed by operation name;
   host_ops         per traced call, the host's CUDA runtime calls
-                   (launches, copies, syncs, allocator calls) and the
+                   (launches, a CUDA graph's replay counting as one;
+                   copies, syncs, allocator calls) and the
                    torch operations it dispatched (any device);
   counters / reset_launches / read_launches
                    each hand-written kernel's launch count, kept by its
@@ -53,7 +54,9 @@ MARK = "spin_kernel"  # torch.cuda._sleep's kernel, which marks where a call sta
 
 # The host's CUDA API calls that host_ops counts, by kind.
 _HOST_CALLS = {
-    "launch": ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"),
+    # A CUDA graph's replay is one launch on the host (utils/step_graphs.py).
+    "launch": ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+               "cuGraphLaunch"),
     "memcpy": ("cudaMemcpyAsync", "cudaMemcpy", "cudaMemcpy2DAsync", "cudaMemsetAsync", "cudaMemset"),
     "sync": ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"),
     "alloc": ("cudaMalloc", "cudaFree", "cudaMallocAsync", "cudaFreeAsync", "cudaHostAlloc", "cudaMallocHost",
@@ -314,12 +317,13 @@ def counters() -> Dict[str, Tuple[object, str]]:
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
     from sketch_rna_tpu_torch.match import row_sort
     from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
+    from sketch_rna_tpu_torch.match.expand import row_expand
 
     return {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
             "K3": (nthash_sketch, "launches"), "K4": (row_sort.row_sort, "launches"),
             "K4-int64": (row_sort.row_sort, "launches_i64"), "merge": (row_sort.merge_pairs, "launches"),
             "merge-partition": (row_sort.merge_partition, "launches"),
-            "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches")}
+            "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches"), "E": (row_expand, "launches")}
 
 
 def reset_launches() -> None:

@@ -75,6 +75,16 @@ def merge_work(N: int, W: int, itemsize: int):
     return 2 * N * W * itemsize, N * W * (itemsize // 4)
 
 
+def _sectors8(needed) -> int:
+    """32-byte sectors of a flat array of 8-byte items (from an aligned
+    start) that hold at least one needed item: `needed` a flat bool
+    tensor, one flag an item."""
+    n = needed.numel()
+    padded = needed.new_zeros(n + (-n % 4))
+    padded[:n] = needed
+    return int(padded.view(-1, 4).any(dim=1).sum())
+
+
 def probe_work(hashes, mask, length, table):
     """(bytes, integer operations) of probing [B, S] lanes through a
     bucket table: each lane's bool mask in and its two int64 outputs out;
@@ -85,13 +95,27 @@ def probe_work(hashes, mask, length, table):
     lane."""
     flat = mask.reshape(-1)
     n, on = flat.numel(), int(flat.sum())
-    padded = flat.new_zeros(n + (-n % 4))
-    padded[:n] = flat
-    sectors = int(padded.view(-1, 4).any(dim=1).sum())
+    sectors = _sectors8(flat)
     h = hashes.reshape(-1) & 0xFFFFFFFF
     rows = (h[flat] >> table.shift).clamp(max=table.packed.shape[0] - 1).unique().numel()
     runs = h[((length > 0) & mask).reshape(-1)].unique().numel()
     return 17 * n + 32 * sectors + rows * 4 * table.mb + 8 * runs, on * table.mb
+
+
+def expand_work(length, W: int):
+    """(bytes, integer operations) of expanding [B, S] posting runs into
+    [B, W] int32 event rows (kernel E), from this run's run lengths
+    (counted on the card): every run's int64 length read once (8 bytes a
+    lane); the int64 start of each run that holds an output lane, in the
+    32-byte sectors those runs touch (an empty run, or one past W, needs
+    no start); each output lane written once (4); one 4-byte posting
+    gathered a valid lane.  One addition a run (the ends' prefix sum) and
+    one operation an output lane."""
+    B, S = length.shape
+    ends = length.cumsum(dim=1)
+    holds = (length > 0) & (ends - length < W)
+    events = int(ends[:, -1].clamp(max=W).sum()) if S else 0
+    return 8 * B * S + 32 * _sectors8(holds.reshape(-1)) + 4 * B * W + 4 * events, B * S + B * W
 
 
 def probe_shape_bytes(lanes: int, mb: int) -> int:

@@ -2,9 +2,11 @@
 and the six scripts/profile_*_torch.py, at small sizes.
 
 - busy_share's interval union, whole_calls' grouping, the trace-retake
-  rule, host_ops' counts and op_name, on synthetic records;
+  rule, host_ops' counts (a CUDA graph's replay one launch) and op_name,
+  on synthetic records;
 - profile_step_torch's stage chain equals the port's sketch_match_step
-  and the JAX package's collect_pairs on the same reads;
+  and the JAX package's collect_pairs on the same reads; its scan row
+  reports match_scan per batch;
 - every posterior-sum strategy of profile_em_scatter_torch equals
   index_add_ within 1e-12, and one EM iteration built on it equals the
   JAX package's run_em_tables within 1e-12 (float64);
@@ -118,6 +120,12 @@ def test_host_ops_counts_per_call():
                                                    "torch_ops": 1.0}
 
 
+def test_host_ops_counts_a_graph_replay_as_a_launch():
+    """A CUDA graph's replay is one host launch, whichever API made it."""
+    events = [_ev(n, device=HOST) for n in ("cudaGraphLaunch", "cuGraphLaunch", "cudaLaunchKernel")]
+    assert profiling.host_ops(events)["launch"] == 3
+
+
 @pytest.mark.parametrize("name,want", [
     ("void at::native::(anonymous namespace)::indexFuncLargeIndex<double, long>(double*, long)",
      "at::native::indexFuncLargeIndex"),
@@ -170,6 +178,21 @@ def test_stage_chain_equals_step_and_jax_collect_pairs(problem, ks):
     np.testing.assert_array_equal(chained.tid.numpy()[row, col], j_tid)
     np.testing.assert_array_equal(score[row, col], j_score)
     assert j_read.size > B and j_stats["expand_dropped"] == 0
+
+
+@pytest.mark.parametrize("ks", [(31,), (21, 31)], ids=["k31", "k21_31"])
+def test_scan_row_per_batch(problem, ks):
+    """profile_step_torch's scan row: match_scan over every read, per batch
+    (device time not measured on the CPU, no graph captured there)."""
+    index = problem.indexes[ks]
+    config = QuantConfig(kmer_lengths=ks, batch_size=128)
+    row = profile_step_torch.profile_scan(index, config, problem.codes, problem.lengths)
+    assert row["batches"] == 5 and row["device_ms"] is None and row["wall_ms"] > 0
+    assert row["graphs_a_call"] == 0 and row["syncs_a_call"] == {} and row["launches"] == {}
+    assert 0 < row["host_ops"]["torch_ops"] and row["host_ops"]["launch"] == 0
+    for split in row["split_ms"].values():
+        parts = split["to_read"] + split["read"] + split["after_read"] + split["drain"]
+        assert min(split.values()) >= 0 and parts == pytest.approx(split["total"])
 
 
 @pytest.fixture(scope="module")
@@ -282,6 +305,8 @@ def test_script_last_line_is_its_json(name, problem, capsys):
     assert sys.modules[name].main(_script_args(name, problem) + ["--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["metric"] == _METRICS[name]
+    if name == "profile_step_torch":
+        assert all(set(run["scan"]) >= {"wall_ms", "device_ms", "host_ops", "graphs_a_call"} for run in line["runs"])
     assert line["card"] == {"name": "cpu", "power_limit": None}
 
 
