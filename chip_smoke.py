@@ -1258,7 +1258,6 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     import numpy as np
 
     from sketch_rna_tpu_torch.pipeline import quantify
-    from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
 
     t0 = time.perf_counter()
     quantify(index, packed, config)
@@ -1266,7 +1265,6 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     print(f"[{tag}] warm-up quant {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    StepGraphs.captures = 0
     t0 = time.perf_counter()
     res = quantify(index, packed, config)
     torch.cuda.synchronize()
@@ -1275,7 +1273,7 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] quant {n_reads} reads in {quant_s:.3f} s: {n_reads / quant_s:.1f} reads/s; "
           f"stages (s) {json.dumps({k: round(v, 4) for k, v in res.timing.items()})}; "
-          f"peak device memory {peak} bytes; {StepGraphs.captures} CUDA graphs captured")
+          f"peak device memory {peak} bytes; {res.timing['graphs.captures']} CUDA graphs captured")
     print(f"[{tag}] EM iterations {res.em_iterations}; mapped reads {res.num_mapped}; stats {json.dumps(res.stats)}; "
           f"launches {json.dumps(launches)}")
     require(np.isfinite(res.pi).all() and np.isfinite(res.weighted_counts).all(), "non-finite EM output")
@@ -1503,7 +1501,7 @@ def _crosscheck_batches(torch, tag, problem):
     from sketch_rna_tpu_torch.match.candidates import match_batch
     from sketch_rna_tpu_torch.pipeline import match_rows, sketch_match_step
     from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
-    from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
+    from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 
     index, codes, lengths, config = problem["index"], problem["codes"], problem["lengths"], problem["config"]
     ks = tuple(index.kmer_lengths)
@@ -1540,10 +1538,10 @@ def _crosscheck_batches(torch, tag, problem):
             f"{tag}: {done['batches']} batches compared of {n_padded // config.batch_size}")
     # The graph path (match_rows' default, match_scan) against that eager
     # per-batch run: equal tables and stats, every batch.
-    StepGraphs.captures = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    g_tid, g_score, g_padded, g_stats = match_rows(index, torch.from_numpy(codes), lengths, config)
+    with PhaseTimer().opened() as timer:
+        g_tid, g_score, g_padded, g_stats = match_rows(index, torch.from_numpy(codes), lengths, config)
     torch.cuda.synchronize()
     g_seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1554,7 +1552,7 @@ def _crosscheck_batches(torch, tag, problem):
           f"== the global-sort matcher's ({done['candidates']} candidates compared, 0 events dropped, "
           f"{done['first_passes']} per-k spills regrouped first, candidate_spilled {int(stats['candidate_spilled'])}) "
           f"in {seconds:.1f} s; the graph path (match_scan) == that eager path, tables and stats, every batch "
-          f"({StepGraphs.captures} graphs captured, {g_seconds:.3f} s, peak device memory {peak} bytes)")
+          f"({timer.counts['graphs.captures']} graphs captured, {g_seconds:.3f} s, peak device memory {peak} bytes)")
 
 
 def _crosscheck_oracle(torch):

@@ -182,7 +182,7 @@ def profile_scan(index, config, codes, lengths) -> dict:
 
     from sketch_rna_tpu_torch.pipeline import match_scan
     from sketch_rna_tpu_torch.utils.profiling import measure, traced
-    from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
+    from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 
     host = torch.from_numpy(np.ascontiguousarray(codes))
     c = host.to(index.device)
@@ -191,9 +191,9 @@ def profile_scan(index, config, codes, lengths) -> dict:
         return match_scan(index, c, lengths, config)
 
     nb = -(-len(lengths) // config.batch_size)
-    StepGraphs.captures = 0
-    scan()
-    captures = StepGraphs.captures
+    with PhaseTimer().opened() as timer:
+        scan()
+    captures = timer.counts["graphs.captures"]
     got = measure(scan, index.device, calls=4)
     events, _ = traced(scan, index.device)
     syncs = collections.Counter(e.cpu_parent.name if e.cpu_parent is not None else "(none)" for e in events

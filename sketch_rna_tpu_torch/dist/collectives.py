@@ -4,7 +4,8 @@
   all_reduce_sum   elementwise SUM over the group
   all_reduce_max   elementwise MAX over the group
   read_max         a small tensor read on the host, its leading entries
-                   MAX-reduced: the one device sync of a match batch
+                   MAX-reduced: the one device sync of a match batch,
+                   counted as match.host_reads (utils/timing.py)
 
 A group of None is a group of one: the identity, no process group needed.
 With NCCL the calls run torch.distributed on the CUDA tensors.  With gloo
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+
+from sketch_rna_tpu_torch.utils.timing import HOST_READS, count, host_read
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
@@ -80,11 +83,12 @@ def read_max(x: torch.Tensor, n: int, group: Optional[object]) -> List[int]:
     import torch.distributed as dist
 
     if group is None:
-        return x.tolist()
+        return host_read(x)
     if dist.get_backend(group) == "nccl":
         out = x.clone()
         dist.all_reduce(out[:n], op=dist.ReduceOp.MAX, group=group)
-        return out.tolist()
+        return host_read(out)
+    count(HOST_READS)
     host = x.to("cpu", copy=True)
     dist.all_reduce(host[:n], op=dist.ReduceOp.MAX, group=group)
     return host.tolist()

@@ -82,6 +82,7 @@ from sketch_rna_tpu_torch.match.rowmatch import (
     row_expand_from_runs,
 )
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+from sketch_rna_tpu_torch.utils.timing import restart
 
 log = logging.getLogger(__name__)
 
@@ -194,8 +195,7 @@ def quantify_rank(index: DeviceIndex, reads: PackedReads, config: QuantConfig, m
     # Always grouped merged (module docstring); match_rows then regroups nothing.
     config = dataclasses.replace(config, match_per_k_tables=False)
     step = functools.partial(match_batch_sharded, index_group=mesh.index_group)
-    timing: Dict[str, float] = {}
-    classes = stream_classes(index, reads, config, None, timing, match=functools.partial(match_rows, step=step))
+    classes = stream_classes(index, reads, config, None, match=functools.partial(match_rows, step=step))
     n_cand_max, counts = mesh_counts(mesh, classes.n_cand_max, dict(classes.stats, num_mapped=classes.num_mapped))
     num_mapped = counts.pop("num_mapped")
     # The reduced stats are the same on every rank, so all take this
@@ -203,9 +203,10 @@ def quantify_rank(index: DeviceIndex, reads: PackedReads, config: QuantConfig, m
     retry_cfg, reason = stream_retry_config(config, counts)
     if retry_cfg is not None:
         log.warning("sharded streaming match %s; rerunning", reason)
+        restart()
         return quantify_rank(index, reads, retry_cfg, mesh, num_reads)
     classes = dataclasses.replace(classes, num_reads=num_reads, num_mapped=num_mapped, n_cand_max=n_cand_max,
                                   stats=counts)
-    result = classes_em(classes, index, config, timing, group=mesh.data_group)
+    result = classes_em(classes, index, config, group=mesh.data_group)
     _replicate_from_column0(result, mesh)
     return result

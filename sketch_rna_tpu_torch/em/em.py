@@ -15,7 +15,8 @@ The loop runs over one or several tables (the streaming engine's narrow
 and wide class buffers); their posterior sums add into one [T] vector
 per iteration.  Rows may carry a multiplicity `weight` (equivalence
 classes, em/classes.py); `static_base` adds folded single-candidate
-classes.  Convergence is tested on the host once per iteration.
+classes.  Convergence is tested on the host once per iteration; each
+iteration counts em.iterations on the quant call's timer (utils/timing.py).
 `init_pi` and `start_iteration` resume from a checkpoint
 (em/checkpoint.py).
 
@@ -50,6 +51,7 @@ import torch
 from sketch_rna_tpu_torch.dist.collectives import all_reduce_sum
 from sketch_rna_tpu_torch.em.classes import Table
 from sketch_rna_tpu_torch.em.segsum import SegsumPlan, plan_from_tables, segsum_apply
+from sketch_rna_tpu_torch.utils.timing import count
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -148,6 +150,7 @@ def run_em_tables(
         change = (new_pi - pi).abs().sum()
         pi = new_pi
         iterations += 1
+        count("em.iterations")
         converged = bool(change < threshold)
     return pi, iterations, converged
 

@@ -41,6 +41,7 @@ import torch
 
 from sketch_rna_tpu_torch.match.expand import row_expand
 from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, merge_sorted_runs, row_sort_wide
+from sketch_rna_tpu_torch.utils.timing import host_read
 
 I32_MAX = 2**31 - 1  # sentinel event key; sorts after every tid
 # Sentinel of a (tid << 32) | score table lane: sorts after every real lane.
@@ -83,7 +84,7 @@ def _fraction_compare_params(fraction: float) -> Tuple[int, int]:
 
 
 def _read_local(x: torch.Tensor, n: int) -> List[int]:
-    return x.tolist()
+    return host_read(x)
 
 
 def event_size_tensor(lengths: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -43,7 +43,6 @@ import dataclasses
 import functools
 import logging
 import os
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -71,7 +70,7 @@ from sketch_rna_tpu_torch.sketch.dispatch import fused_groups, sketch_ops, sketc
 from sketch_rna_tpu_torch.utils.profiling import maybe_trace
 from sketch_rna_tpu_torch.utils.roofline import probe_shape_bytes
 from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
-from sketch_rna_tpu_torch.utils.timing import PhaseTimer
+from sketch_rna_tpu_torch.utils.timing import count, host_read, phase, quant_call
 
 log = logging.getLogger(__name__)
 
@@ -91,6 +90,18 @@ STAT_KEYS = LOSS_KEYS + ("candidate_spilled_per_k",)
 class QuantResult:
     """One quant's result: abundances, counts, CSV membership, stats,
     stage times and work counts.
+
+    timing: the call's span seconds and counters (utils/timing.py): the
+    stages match (fused) or stream_match, classes, em_assign, a fused
+    run's quant_fused and quant_fused_per_s (reads/s), index_upload
+    (to_device's seconds); graphs.capture (seconds in CUDA-graph
+    captures); the counters graphs.captures, graphs.reserved_bytes,
+    match.groups (length groups matched, summed over a stream's chunks),
+    match.host_reads (blocking device-to-host reads of the match stage,
+    each counted once where the program asks for it: a torch.unique or a
+    boolean-mask index of the streamed class dedup too) and
+    em.iterations.  A quant that retries (a streamed wide-block spill)
+    reports the retry alone.
 
     sizes: the work a fused quant did, counted on the host from the
     shapes the engine already knows (no device sync), the inputs of
@@ -164,11 +175,6 @@ class QuantResult:
 
 def _round_up(n: int, mult: int) -> int:
     return ((int(n) + mult - 1) // mult) * mult
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 # The EM's width tiers (em/classes.py), as in the JAX engine: classes with
@@ -321,6 +327,7 @@ def _groups(index: DeviceIndex, codes: torch.Tensor, lengths_np: np.ndarray, con
     ks = tuple(index.kmer_lengths)
     pin = index.device.type == "cuda" and codes.device.type == "cpu"
     for pad, rows in length_groups(lengths_np, codes.shape[1]):
+        count("match.groups")
         n_rows = int(lengths_np[rows].size)
         width = min(pad, codes.shape[1])
         l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), max(ks)), 8))
@@ -481,6 +488,10 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     sketch_match_step as the regroup).  Tables, row order, the padded
     count, stats and sizes equal the per-batch route's (match_rows with
     sketch_match_step) exactly.
+
+    On the open timer (utils/timing.py; a quant call's, or one a tool
+    opens around this call) it counts match.groups (in _groups),
+    match.host_reads (each default read) and its graphs' captures.
     """
     ks = tuple(index.kmer_lengths)
     K = len(ks)
@@ -653,43 +664,40 @@ def _run_em(tables, num_reads: int, num_transcripts: int, config: QuantConfig, r
 
 
 def em_assign(tables, static_base, static_has, index: DeviceIndex, config: QuantConfig, *, num_reads: int,
-              num_mapped: int, stats: Dict[str, int], timing: Dict[str, float], group=None) -> QuantResult:
-    """EM (with checkpoints) + soft assignment over weighted tables, timed
-    into timing["em_assign"]; the QuantResult of every engine.  The route
+              num_mapped: int, stats: Dict[str, int], group=None) -> QuantResult:
+    """EM (with checkpoints) + soft assignment over weighted tables, the
+    span em_assign; the QuantResult of every engine.  The route
     (em/em.py em_route) is resolved once, and a segsum plan
     built once, over this process's tables.  group: the data group whose
     ranks each hold a share of the classes (em/em.py); num_reads and
     num_mapped are then the global counts."""
-    t0 = time.perf_counter()
-    names = index.names
-    T = len(names)
-    route = em_route(tables, T, config)
-    pi, iterations = _run_em(tables, num_reads, T, config, route, static_base=static_base, group=group)
-    pi = pi.to(tables[0][0].device, torch.float64 if config.em_dtype == "float64" else torch.float32)
-    weighted, has_entry = assign_reads_tables(
-        tables,
-        pi,
-        num_transcripts=T,
-        dtype=config.em_dtype,
-        static_base=static_base,
-        static_has=static_has,
-        group=group,
-        **route,
-    )
-    result = QuantResult(
-        names=list(names),
-        pi=pi.cpu().numpy(),
-        weighted_counts=weighted.cpu().numpy(),
-        has_entry=has_entry.cpu().numpy(),
-        em_iterations=iterations,
-        num_reads=num_reads,
-        num_mapped=num_mapped,
-        stats=stats,
-        timing=timing,
-        lengths=np.asarray(index.lengths),
-    )
-    timing["em_assign"] = time.perf_counter() - t0
-    return result
+    with phase("em_assign"):
+        names = index.names
+        T = len(names)
+        route = em_route(tables, T, config)
+        pi, iterations = _run_em(tables, num_reads, T, config, route, static_base=static_base, group=group)
+        pi = pi.to(tables[0][0].device, torch.float64 if config.em_dtype == "float64" else torch.float32)
+        weighted, has_entry = assign_reads_tables(
+            tables,
+            pi,
+            num_transcripts=T,
+            dtype=config.em_dtype,
+            static_base=static_base,
+            static_has=static_has,
+            group=group,
+            **route,
+        )
+        return QuantResult(
+            names=list(names),
+            pi=pi.cpu().numpy(),
+            weighted_counts=weighted.cpu().numpy(),
+            has_entry=has_entry.cpu().numpy(),
+            em_iterations=iterations,
+            num_reads=num_reads,
+            num_mapped=num_mapped,
+            stats=stats,
+            lengths=np.asarray(index.lengths),
+        )
 
 
 def streams(num_reads: int, config: QuantConfig) -> bool:
@@ -697,6 +705,7 @@ def streams(num_reads: int, config: QuantConfig) -> bool:
     return _round_up(num_reads, config.batch_size) > FUSED_MAX_PADDED_READS
 
 
+@quant_call
 def quantify(
     index: DeviceIndex,
     packed: PackedReads,
@@ -713,7 +722,7 @@ def quantify(
     clock read after the device has finished; both engines report the
     index's set-up, timing["index_upload"] (to_device, bucket tables
     included).  SKETCH_TPU_PROFILE traces either engine
-    (utils/profiling.py).
+    (utils/profiling.py), the stage spans as "srt.<stage>" records.
     """
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
     R = packed.num_reads
@@ -724,11 +733,9 @@ def quantify(
 
         with maybe_trace("quant_streamed"):
             return quantify_streamed(index, packed, config)
-    timer = PhaseTimer()
-    with maybe_trace("quant_fused"), timer.phase("quant_fused", items=R, device=index.device):
-        result = _quantify_fused(index, packed, config)
-    result.timing.update(timer.report())
-    return result
+    # No profiler record: it would cover the idle gaps between the stages' records.
+    with maybe_trace("quant_fused"), phase("quant_fused", items=R, device=index.device, record=False):
+        return _quantify_fused(index, packed, config)
 
 
 def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig) -> QuantResult:
@@ -736,38 +743,36 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     R = packed.num_reads
     T = index.num_transcripts
     dev = index.device
-    timing: Dict[str, float] = {"index_upload": index.upload_s}
 
-    t0 = time.perf_counter()
     sizes: Dict[str, int] = {}
-    tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths, config,
-                                                     sizes=sizes)
-    host_stats = dict(zip(stats, torch.stack(list(stats.values())).tolist()))  # one read
-    for key in LOSS_KEYS:
-        if host_stats[key]:
-            log.warning("capacity overflow during matching: %s=%d", key, host_stats[key])
-    timing["match"] = time.perf_counter() - t0
+    with phase("match"):
+        tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths,
+                                                         config, sizes=sizes)
+        host_stats = dict(zip(stats, host_read(torch.stack(list(stats.values())))))
+        for key in LOSS_KEYS:
+            if host_stats[key]:
+                log.warning("capacity overflow during matching: %s=%d", key, host_stats[key])
 
-    t0 = time.perf_counter()
-    # Rows are rank-ordered, so narrowing to the widest candidate set
-    # (pow2) is lossless.
-    n_cand = (tbl_score > 0).sum(dim=1)
-    n_cand_max, num_mapped = (int(v) for v in torch.stack([n_cand.max(), (n_cand > 0).sum()]).tolist())
-    W = min(pow2ceil(max(n_cand_max, 1)), config.candidate_capacity)
-    tbl_tid = tbl_tid[:, :W]
-    tbl_score = tbl_score[:, :W]
-    tables, static_base, static_has = em_tables(tbl_tid, tbl_score, config, num_transcripts=T, n_rows=n_padded)
-    _sync(dev)
-    timing["classes"] = time.perf_counter() - t0
+    with phase("classes", device=dev):
+        # Rows are rank-ordered, so narrowing to the widest candidate set
+        # (pow2) is lossless.
+        n_cand = (tbl_score > 0).sum(dim=1)
+        n_cand_max, num_mapped = (int(v) for v in torch.stack([n_cand.max(), (n_cand > 0).sum()]).tolist())
+        W = min(pow2ceil(max(n_cand_max, 1)), config.candidate_capacity)
+        tbl_tid = tbl_tid[:, :W]
+        tbl_score = tbl_score[:, :W]
+        tables, static_base, static_has = em_tables(tbl_tid, tbl_score, config, num_transcripts=T, n_rows=n_padded)
 
     sizes["em_lanes"] = sum(t[0].numel() for t in tables)
     sizes["em_width_max"] = max(t[0].shape[1] for t in tables)
     result = em_assign(tables, static_base, static_has, index, config, num_reads=R, num_mapped=num_mapped,
-                       stats=host_stats, timing=timing)
+                       stats=host_stats)
     result.sizes = sizes
+    result.timing["index_upload"] = index.upload_s
     return result
 
 
+@quant_call
 def quantify_sharded(
     index: Union[IndexArtifact, DeviceIndex],
     packed: PackedReads,

@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -48,6 +47,7 @@ from sketch_rna_tpu_torch.em.classes import group_rows
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex
 from sketch_rna_tpu_torch.io.packing import Packed2Reads, PackedReads, unpack_codes2
 from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
+from sketch_rna_tpu_torch.utils.timing import HOST_READS, count, host_read, phase, quant_call, restart
 
 log = logging.getLogger(__name__)
 
@@ -101,22 +101,30 @@ def chunk_match_classes(
 
     tid, score, _, stats = (match or match_rows)(index, codes, lengths, config)
     n_cand = (score > 0).sum(dim=1)
-    n_cand_max, num_mapped = (int(v) for v in torch.stack([n_cand.max(), (n_cand > 0).sum()]).tolist())
+    n_cand_max, num_mapped = (int(v) for v in host_read(torch.stack([n_cand.max(), (n_cand > 0).sum()])))
     W = min(pow2ceil(max(n_cand_max, 1)), config.candidate_capacity)
     ones = torch.ones(tid.shape[0], dtype=torch.int64, device=tid.device)
     c_tid, c_score, c_weight = group_rows(tid[:, :W], score[:, :W], ones)
+    count(HOST_READS)  # torch.unique reads its row count
     stats = dict(stats, wide_spilled=0)
     C = config.candidate_capacity
     if not 0 < narrow_width < C:
         return (c_tid, c_score, c_weight), None, n_cand_max, num_mapped, stats
     wide = (c_score > 0).sum(dim=1) > narrow_width
     keep = ~wide
-    narrow = (c_tid[keep, :narrow_width], c_score[keep, :narrow_width], c_weight[keep])
-    w_tid, w_score, w_weight = c_tid[wide], c_score[wide], c_weight[wide]
+    narrow = _masked_rows(keep, c_tid[:, :narrow_width], c_score[:, :narrow_width], c_weight)
+    w_tid, w_score, w_weight = _masked_rows(wide, c_tid, c_score, c_weight)
     if w_tid.shape[0] > wide_rows:
         stats["wide_spilled"] = w_weight[wide_rows:].sum()
         w_tid, w_score, w_weight = w_tid[:wide_rows], w_score[:wide_rows], w_weight[:wide_rows]
     return narrow, (w_tid, w_score, w_weight), n_cand_max, num_mapped, stats
+
+
+def _masked_rows(mask: torch.Tensor, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each of xs' rows where mask is set; every boolean-mask index reads
+    its row count to the host (counted as match.host_reads)."""
+    count(HOST_READS, len(xs))
+    return tuple(x[mask] for x in xs)
 
 
 class _ClassBuffer:
@@ -150,6 +158,7 @@ class _ClassBuffer:
     def compact(self) -> None:
         n = self.fill
         tid, score, weight = group_rows(self.tid[:n], self.score[:n], self.weight[:n])
+        count(HOST_READS)  # torch.unique reads its row count
         m = tid.shape[0]
         self.tid[:m], self.score[:m], self.weight[:m] = tid, score, weight
         self.fill = m
@@ -160,6 +169,7 @@ class _ClassBuffer:
         n = self.fill
         log.info("class buffer drains %d classes to the host", n)
         # copy=True: on a CPU buffer .cpu() would alias the rows refilled next.
+        count(HOST_READS, 3)
         self.drained.append(tuple(x[:n].to("cpu", copy=True).numpy() for x in (self.tid, self.score, self.weight)))
         self.fill = 0
 
@@ -177,7 +187,10 @@ class _ClassBuffer:
         self.score[rows, :w], self.score[rows, w:] = score[:fit], 0
         self.weight[rows] = weight[:fit]
         self.fill += fit
-        return int(weight[fit:].sum()) if fit < n else 0
+        if fit == n:
+            return 0
+        count(HOST_READS)
+        return int(weight[fit:].sum())
 
     def merged(self, W: int) -> Classes:
         """Every class at width min(W, width): the live rows, with the
@@ -288,13 +301,12 @@ def stream_classes(
     reads: Feed,
     config: QuantConfig,
     num_reads_hint: Optional[int],
-    timing: Dict[str, float],
     match: Optional[Callable] = None,
 ) -> StreamedClasses:
     """The chunk loop: upload, match (chunk_match_classes) and append
-    every super-chunk's classes to the class buffers; timed into
-    timing["stream_match"]."""
-    from sketch_rna_tpu_torch.pipeline import STAT_KEYS, _sync
+    every super-chunk's classes to the class buffers; the span
+    stream_match."""
+    from sketch_rna_tpu_torch.pipeline import STAT_KEYS
 
     dev = index.device
     C = config.candidate_capacity
@@ -310,25 +322,23 @@ def stream_classes(
 
     R = num_mapped = n_cand_max = class_overflow = 0
     stats: Dict[str, object] = {key: 0 for key in STAT_KEYS + ("wide_spilled",)}
-    t0 = time.perf_counter()
-    for chunk in _prefetched(_chunks_of(reads, eff_chunk)):
-        n = chunk.num_reads
-        if n == 0:
-            continue
-        R += n
-        codes, lengths = _upload(chunk, dev)
-        narrow, wide, ncm, mapped, st = chunk_match_classes(index, codes, lengths, config, nw if dual else 0,
-                                                            wide_rows, match)
-        del codes
-        n_cand_max = max(n_cand_max, ncm)
-        num_mapped += mapped
-        for key in stats:
-            stats[key] = stats[key] + st[key]
-        class_overflow += buf.append(narrow)
-        if buf_w is not None:
-            class_overflow += buf_w.append(wide)
-    _sync(dev)
-    timing["stream_match"] = time.perf_counter() - t0
+    with phase("stream_match", device=dev):
+        for chunk in _prefetched(_chunks_of(reads, eff_chunk)):
+            n = chunk.num_reads
+            if n == 0:
+                continue
+            R += n
+            codes, lengths = _upload(chunk, dev)
+            narrow, wide, ncm, mapped, st = chunk_match_classes(index, codes, lengths, config, nw if dual else 0,
+                                                                wide_rows, match)
+            del codes
+            n_cand_max = max(n_cand_max, ncm)
+            num_mapped += mapped
+            for key in stats:
+                stats[key] = stats[key] + st[key]
+            class_overflow += buf.append(narrow)
+            if buf_w is not None:
+                class_overflow += buf_w.append(wide)
     host_stats = {key: int(v) for key, v in stats.items()}
     host_stats["class_overflow"] = class_overflow
     return StreamedClasses(buf, buf_w, R, num_mapped, n_cand_max, host_stats)
@@ -338,7 +348,6 @@ def classes_em(
     classes: StreamedClasses,
     index: DeviceIndex,
     config: QuantConfig,
-    timing: Dict[str, float],
     group=None,
 ):
     """Merge the buffers' classes, tier the narrow buffer's and the wide
@@ -346,7 +355,7 @@ def classes_em(
     the tiers, over `group` when the classes are one data shard's
     (em/em.py).  stats gains stream_drains, stream_compactions and
     stream_classes (this process's buffers)."""
-    from sketch_rna_tpu_torch.pipeline import LOSS_KEYS, _sync, em_assign, em_tables
+    from sketch_rna_tpu_torch.pipeline import LOSS_KEYS, em_assign, em_tables
 
     buf, buf_w, stats = classes.narrow, classes.wide, classes.stats
     T = index.num_transcripts
@@ -357,28 +366,27 @@ def classes_em(
     stats["stream_drains"] = len(buf.drained) + (len(buf_w.drained) if buf_w is not None else 0)
     stats["stream_compactions"] = buf.compactions + (buf_w.compactions if buf_w is not None else 0)
 
-    t0 = time.perf_counter()
-    W = min(pow2ceil(max(classes.n_cand_max, 1)), C)
-    tid, score, weight = buf.merged(W)
-    tables, static_base, static_has = em_tables(tid, score, config, num_transcripts=T, n_rows=buf.m_cap,
-                                                row_weight=weight)
-    stats["stream_classes"] = int(tid.shape[0])
-    if buf_w is not None:
-        # The wide buffer's classes are disjoint from the narrow buffer's
-        # (more than nw >= 1 candidates, so none folds): their tiers join
-        # the narrow buffer's, as in the JAX engine.
-        w_tid, w_score, w_weight = buf_w.merged(W)
-        if w_tid.shape[0]:
-            tables += em_tables(w_tid, w_score, config, num_transcripts=T, n_rows=buf_w.m_cap,
-                                row_weight=w_weight)[0]
-        stats["stream_classes"] += int(w_tid.shape[0])
-    _sync(index.device)
-    timing["classes"] = time.perf_counter() - t0
+    with phase("classes", device=index.device):
+        W = min(pow2ceil(max(classes.n_cand_max, 1)), C)
+        tid, score, weight = buf.merged(W)
+        tables, static_base, static_has = em_tables(tid, score, config, num_transcripts=T, n_rows=buf.m_cap,
+                                                    row_weight=weight)
+        stats["stream_classes"] = int(tid.shape[0])
+        if buf_w is not None:
+            # The wide buffer's classes are disjoint from the narrow buffer's
+            # (more than nw >= 1 candidates, so none folds): their tiers join
+            # the narrow buffer's, as in the JAX engine.
+            w_tid, w_score, w_weight = buf_w.merged(W)
+            if w_tid.shape[0]:
+                tables += em_tables(w_tid, w_score, config, num_transcripts=T, n_rows=buf_w.m_cap,
+                                    row_weight=w_weight)[0]
+            stats["stream_classes"] += int(w_tid.shape[0])
 
     return em_assign(tables, static_base, static_has, index, config, num_reads=classes.num_reads,
-                     num_mapped=classes.num_mapped, stats=stats, timing=timing, group=group)
+                     num_mapped=classes.num_mapped, stats=stats, group=group)
 
 
+@quant_call
 def quantify_streamed(
     index: DeviceIndex,
     reads: Feed,
@@ -398,15 +406,17 @@ def quantify_streamed(
     from sketch_rna_tpu_torch.pipeline import _empty_result
 
     config = config or QuantConfig(kmer_lengths=tuple(index.kmer_lengths))
-    timing: Dict[str, float] = {"index_upload": index.upload_s}
-    classes = stream_classes(index, reads, config, num_reads_hint, timing)
+    classes = stream_classes(index, reads, config, num_reads_hint)
     if classes.num_reads == 0:
         return _empty_result(index)
     retry_cfg, reason = stream_retry_config(config, classes.stats)
     if retry_cfg is not None:
         if isinstance(reads, (PackedReads, Packed2Reads)):
             log.warning("streaming match %s; rerunning", reason)
+            restart()
             return quantify_streamed(index, reads, retry_cfg, num_reads_hint=num_reads_hint)
         log.warning("streaming match %s on a feed that cannot be replayed; the CLI re-scans and "
                     "retries, other callers should rerun with the adjusted config", reason)
-    return classes_em(classes, index, config, timing)
+    result = classes_em(classes, index, config)
+    result.timing["index_upload"] = index.upload_s
+    return result

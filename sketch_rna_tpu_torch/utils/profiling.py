@@ -290,13 +290,23 @@ def device_ms_by_name(events: Iterable, top: int = 15) -> List[Tuple[str, float,
     return sorted(((name, ms[name], count[name]) for name in ms), key=lambda r: -r[1])[:top]
 
 
+def _under_aten(e) -> bool:
+    parent = e.cpu_parent
+    while parent is not None:
+        if parent.name.startswith("aten::"):
+            return True
+        parent = parent.cpu_parent
+    return False
+
+
 def host_ops(events: Iterable, calls: int = 1) -> Dict[str, float]:
     """The host's work per traced call, from a trace's CPU records: its
     CUDA runtime calls by kind (launch, memcpy: copies and memsets,
     sync: stream / device / event synchronizes, alloc: the allocator's
     cudaMalloc / cudaFree and host-memory calls) and torch_ops, the
-    torch operations it dispatched (top-level aten:: records).  Each
-    count is divided by `calls`, the calls the trace held."""
+    torch operations it dispatched (aten:: records that no other aten::
+    record encloses; a span's "srt." record may).  Each count is divided
+    by `calls`, the calls the trace held."""
     kind_of = {name: kind for kind, names in _HOST_CALLS.items() for name in names}
     counts = dict.fromkeys((*_HOST_CALLS, "torch_ops"), 0)
     for e in events:
@@ -305,7 +315,7 @@ def host_ops(events: Iterable, calls: int = 1) -> Dict[str, float]:
         kind = kind_of.get(e.name)
         if kind is not None:
             counts[kind] += 1
-        elif e.name.startswith("aten::") and e.cpu_parent is None:
+        elif e.name.startswith("aten::") and not _under_aten(e):
             counts["torch_ops"] += 1
     return {kind: n / max(calls, 1) for kind, n in counts.items()}
 

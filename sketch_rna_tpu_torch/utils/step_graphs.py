@@ -25,6 +25,13 @@ run(key, fn, *inputs) returns fn(*inputs):
 
 A capture that fails raises; nothing falls back to running eagerly.
 
+Each capture (its warm-up, capture and instantiate) is the span
+graphs.capture of the quant call's timer (utils/timing.py), and counts
+graphs.captures and graphs.reserved_bytes: torch.cuda.memory_reserved()
+after it less before it, an allocator statistic read on the host, no
+device sync.  A StepGraphs declares the span and both counters, so they
+read 0 where nothing is captured (the CPU).
+
 The kernel wrappers count launches on the host (utils/profiling.py
 counters), so a replay would not advance them: each graph keeps the
 counts its capture added (and takes them back, since a capture launches
@@ -37,6 +44,8 @@ import dataclasses
 from typing import Callable, Dict, Hashable, List, Tuple
 
 import torch
+
+from sketch_rna_tpu_torch.utils.timing import count, declare, phase
 
 
 @dataclasses.dataclass
@@ -67,11 +76,12 @@ class StepGraphs:
     """The graphs of one match call on one device, keyed by their step's
     static shapes (see the module docstring)."""
 
-    captures = 0  # graphs captured since the last reset, over every instance
-
     def __init__(self, device):
         self.device = torch.device(device)
         self.graphs: Dict[Hashable, _Graph] = {}
+        declare("graphs.capture")
+        count("graphs.captures", 0)
+        count("graphs.reserved_bytes", 0)
         if self.device.type == "cuda":
             from sketch_rna_tpu_torch.utils.profiling import counters
 
@@ -84,7 +94,12 @@ class StepGraphs:
             return fn(*inputs)
         entry = self.graphs.get(key)
         if entry is None:
-            return self._capture(key, fn, inputs)
+            reserved = torch.cuda.memory_reserved(self.device)
+            with phase("graphs.capture", inner=True):
+                out = self._capture(key, fn, inputs)
+            count("graphs.captures")
+            count("graphs.reserved_bytes", torch.cuda.memory_reserved(self.device) - reserved)
+            return out
         for buf, x in zip(entry.inputs, inputs):
             buf.copy_(x)
         entry.graph.replay()
@@ -124,5 +139,4 @@ class StepGraphs:
         launches = {name: after[name] - before[name] for name in after if after[name] != before[name]}
         self._add({name: -n for name, n in launches.items()})  # the capture launched nothing
         self.graphs[key] = _Graph(graph, static, outputs, launches)
-        StepGraphs.captures += 1
         return out

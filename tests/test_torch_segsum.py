@@ -284,10 +284,10 @@ def test_checkpointed_em_builds_one_plan(monkeypatch, tmp_path):
     monkeypatch.setattr(port_em, "plan_from_tables", counting)
     cfg = QuantConfig(em_segsum="on", em_dtype="float64", em_max_iterations=20, em_convergence=0.0)
     index = dataclasses.make_dataclass("Index", ["names", "lengths"])([f"T{i}" for i in range(T)], np.ones(T))
-    one = pipeline.em_assign(tables, None, None, index, cfg, num_reads=400, num_mapped=1, stats={}, timing={})
+    one = pipeline.em_assign(tables, None, None, index, cfg, num_reads=400, num_mapped=1, stats={})
     seg = pipeline.em_assign(tables, None, None, index,
                              dataclasses.replace(cfg, em_checkpoint=str(tmp_path / "em.npz"), em_checkpoint_every=3),
-                             num_reads=400, num_mapped=1, stats={}, timing={})
+                             num_reads=400, num_mapped=1, stats={})
     assert built == [T, T]  # one plan a quant, for 1 segment and for 7
     np.testing.assert_array_equal(seg.pi, one.pi)
     np.testing.assert_array_equal(seg.weighted_counts, one.weighted_counts)
