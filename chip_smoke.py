@@ -100,7 +100,12 @@ without printing its result line:
                 pipeline.match_scan: one host read a length group, the
                 batch steps replayed from CUDA graphs) equal to its eager
                 per-batch path, tables and stats, with the graphs it
-                captured and its peak device memory;
+                captured and its peak device memory; then four more
+                graph-path calls on the same index (two repeats, one
+                under another chain fraction, one more under the first
+                config), each equal to its config's eager path, the
+                repeats capturing nothing (the graphs live with the
+                index);
   fuzz          the oracle fuzz's trials 777000 .. 777047 on the card
                 (oracle/fuzz.py, as scripts/fuzz_oracle_torch.py runs
                 them), trial i in regime i mod 8 (fused one k, fused 2-3
@@ -174,7 +179,9 @@ without printing its result line:
                 through the kernels and the plain functions (equal tables),
                 K1 (k = 31) and K2 (ks 21, 31) timed there at [8192, 152],
                 and E on the k = 31 batch's posting runs (its bound from
-                that batch's events);
+                that batch's events); 200 k = 31 quants on one index whose
+                reserved device memory grows by under 64 MiB after the
+                first two, with no graph captured after them;
                 then 8,388,608 reads (~2.7 GB) from a FASTQ through the CLI
                 (the streamed route over the native scan on a background
                 thread: "native-lazy", the route of a file past 2 GiB), its
@@ -314,6 +321,8 @@ CLI_READS = 2_200_000
 # "native-lazy").
 GENCODE_READS = 1 << 20
 GENCODE_FILE_READS = 8_388_608
+RESERVED_CALLS = 200  # gencode: quants on one index whose reserved memory may grow
+RESERVED_GROWTH_MIB = 64  # by less than this after the first two
 STAGES_FEED_READS = 2_097_152  # the stages phase's FASTQ for the feed's rates
 STEP_EM = ("iteration", "e_step", "m_step", "assign")  # profile_step_torch.profile_em's measurements
 L2_BYTES = 50 * 2**20
@@ -1494,7 +1503,12 @@ def _crosscheck_batches(torch, tag, problem):
     batch's most events a read (from P's run lengths).  Then the graph
     path (match_rows' default: match_scan, its steps replayed from CUDA
     graphs) on the same reads: tables and stats equal to that eager
-    per-batch run's; the graphs it captured and its peak memory."""
+    per-batch run's; the graphs it captured and its peak memory.  Then
+    four more graph-path calls on the same index (two repeats, one under
+    another chain fraction, one more under the first config): each equal
+    to its config's eager path, and the repeats capture nothing."""
+    import dataclasses
+
     import numpy as np
 
     from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
@@ -1553,6 +1567,27 @@ def _crosscheck_batches(torch, tag, problem):
           f"{done['first_passes']} per-k spills regrouped first, candidate_spilled {int(stats['candidate_spilled'])}) "
           f"in {seconds:.1f} s; the graph path (match_scan) == that eager path, tables and stats, every batch "
           f"({timer.counts['graphs.captures']} graphs captured, {g_seconds:.3f} s, peak device memory {peak} bytes)")
+    # The graphs live with the index: two more calls replay them, a call
+    # under another chain fraction captures its own, and the first config
+    # after it replays again; each equal to its config's eager path.
+    base = (tid, score, n_padded, stats)
+    other = dataclasses.replace(config, chain_fraction=0.5 if config.chain_fraction != 0.5 else 0.9)
+    runs = (("repeat", config, base), ("repeat", config, base),
+            (f"chain_fraction {other.chain_fraction}", other,
+             match_rows(index, torch.from_numpy(codes), lengths, other, step=sketch_match_step)),
+            ("after it", config, base))
+    counts = []
+    for name, cfg, want in runs:
+        with PhaseTimer().opened() as timer:
+            got = match_rows(index, torch.from_numpy(codes), lengths, cfg)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
+                and all(int(got[3][k]) == int(want[3][k]) for k in want[3]),
+                f"{tag}: the graph path's {name} call on one index differs from the eager per-batch path")
+        counts.append((name, timer.counts["graphs.captures"], timer.counts["graphs.replays"]))
+    require(counts[0][1] == counts[1][1] == counts[3][1] == 0,
+            f"{tag}: a repeated call on one index captured graphs: {counts}")
+    print(f"[crosscheck] {tag}: later graph-path calls on the same index == the eager path, tables and stats "
+          f"(call, graphs captured, replayed): {counts}")
 
 
 def _crosscheck_oracle(torch):
@@ -2574,6 +2609,9 @@ def phase_gencode(torch, results, ctx):
             _time_expand(torch, results, tag, index, c, n, caps, f)
         del c, n, got, want
 
+    _reserved_growth(torch, indexes[(31,)][1], packed,
+                     QuantConfig(kmer_lengths=(31,), batch_size=BATCH, max_read_len=256, em_dtype="float64"))
+
     # File to CSV: a FASTQ of GENCODE_FILE_READS reads through the CLI.
     artifact, index = indexes[(31,)]
     config = QuantConfig(batch_size=BATCH)  # the CLI's defaults: k from the index, float64 EM
@@ -2619,6 +2657,37 @@ def phase_gencode(torch, results, ctx):
     require(not missing, f"gencode: kernels never launched: {missing}")
     for name in results:
         record(results, name, launches_gencode=path[name])
+
+
+def _reserved_growth(torch, index, packed, config, calls=RESERVED_CALLS):
+    """`calls` quants of the same reads on one index, as a process that
+    quantifies sample after sample does: the card's reserved memory may
+    grow by under RESERVED_GROWTH_MIB after the first two calls (the match
+    stage's CUDA graphs live with the index, so later calls capture
+    nothing and add no graph pool)."""
+    from sketch_rna_tpu_torch.pipeline import quantify
+    from sketch_rna_tpu_torch.utils.timing import PhaseTimer
+
+    t0 = time.perf_counter()
+    captures, captured_bytes = [], 0
+    for i in range(calls):
+        if i == 2:
+            torch.cuda.synchronize()
+            after_two = torch.cuda.memory_reserved()
+        with PhaseTimer().opened() as timer:
+            quantify(index, packed, config)
+        captures.append(timer.counts["graphs.captures"])
+        captured_bytes += timer.counts["graphs.reserved_bytes"]
+    torch.cuda.synchronize()
+    growth = (torch.cuda.memory_reserved() - after_two) / 2**20
+    secs = time.perf_counter() - t0
+    print(f"[gencode k=31] {calls} quants on one index in {secs:.1f} s: reserved memory "
+          f"{after_two / 2**30:.3f} GiB after the first two, grew {growth:.1f} MiB over the other {calls - 2}; "
+          f"graphs captured: {captures[:2]} in the first two, {sum(captures[2:])} after, reserving "
+          f"{captured_bytes / 2**20:.1f} MiB in all")
+    require(growth < RESERVED_GROWTH_MIB and sum(captures[2:]) == 0,
+            f"reserved memory grew {growth:.1f} MiB over {calls - 2} quants on one index "
+            f"(bound {RESERVED_GROWTH_MIB} MiB), {sum(captures[2:])} graphs captured after the first two")
 
 
 def _time_expand(torch, results, tag, index, c, n, caps, f):

@@ -24,9 +24,10 @@ order:
   scan    pipeline.match_scan over all --reads reads, already on the
           device (the fused and streamed engines' match stage: one host
           read a length group, the batch steps replayed from CUDA graphs
-          on a card, captured anew each call), reported per batch: wall
-          and device ms, launches and host operations, with the graphs
-          captured and the host calls that synchronized, by the torch
+          on a card, kept with the index), reported per batch: wall and
+          device ms, launches and host operations, with the graphs its
+          first call captured (0 where an earlier call on the index
+          captured them) and the host calls that synchronized, by the torch
           operation that made them; and one call split by the host
           clock (the fastest of three), with the codes on the device and
           on the host (the fused engine's case): until the size read,
@@ -173,7 +174,8 @@ def profile_scan(index, config, codes, lengths) -> dict:
     """match_scan over every read (codes on the index's device, as the
     streamed engine hands them over), measured per batch: wall ms, device
     ms, launches and host operations (utils/profiling.measure), the graphs
-    one call captures, and the synchronizing host calls of one traced call
+    its first call captures (they stay with the index: later calls
+    replay them), and the synchronizing host calls of one traced call
     by the torch operation they sit under."""
     import collections
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from sketch_rna_tpu_torch.match.bucket_lookup import BucketTable, device_bucket_table
+from sketch_rna_tpu_torch.utils.step_graphs import GraphStore
 
 FORMAT_VERSION = 1
 
@@ -87,6 +88,9 @@ class DeviceIndex:
     per_k: Dict[int, DeviceKIndex]
     device: torch.device
     upload_s: float = 0.0  # to_device's seconds, bucket tables included
+    # The match stage's CUDA graphs on this index (utils/step_graphs.py):
+    # made empty with every DeviceIndex, dataclasses.replace included.
+    graphs: GraphStore = dataclasses.field(default_factory=GraphStore, init=False, repr=False, compare=False)
 
     @property
     def num_transcripts(self) -> int:

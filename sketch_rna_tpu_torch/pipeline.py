@@ -95,8 +95,8 @@ class QuantResult:
     stages match (fused) or stream_match, classes, em_assign, a fused
     run's quant_fused and quant_fused_per_s (reads/s), index_upload
     (to_device's seconds); graphs.capture (seconds in CUDA-graph
-    captures); the counters graphs.captures, graphs.reserved_bytes,
-    match.groups (length groups matched, summed over a stream's chunks),
+    captures); the counters graphs.captures, graphs.replays,
+    graphs.evictions, graphs.reserved_bytes, match.groups (length groups matched, summed over a stream's chunks),
     match.host_reads (blocking device-to-host reads of the match stage,
     each counted once where the program asks for it: a torch.unique or a
     boolean-mask index of the streamed class dedup too) and
@@ -481,9 +481,11 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
          (group_runs); a batch with a read past MAX_WIDTH events at some
          k groups in row slices, eagerly (rowmatch.match_runs).
 
-    On a card, steps 1 and 3 replay CUDA graphs keyed by their static
-    shapes (utils/step_graphs.py); a group whose sketch takes K3 runs step
-    1 eagerly (K3 reads its kept count to the host).  The per-k spill
+    On a card, steps 1 and 3 replay CUDA graphs kept with the index
+    (index.graphs, utils/step_graphs.py), keyed by their static shapes
+    and the config fields they read, so a later call captures no key an
+    earlier one did; a group whose sketch takes K3 runs step 1 eagerly
+    (K3 reads its kept count to the host).  The per-k spill
     regroup and the tables' assembly are match_rows' (_match_tables, with
     sketch_match_step as the regroup).  Tables, row order, the padded
     count, stats and sizes equal the per-batch route's (match_rows with
@@ -496,7 +498,8 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     ks = tuple(index.kmer_lengths)
     K = len(ks)
     B, C = config.batch_size, config.candidate_capacity
-    graphs = StepGraphs(index.device)
+    # What the captured steps read of the config (batch_size through Bg).
+    fields = (config.sketch_fraction, config.chain_fraction, C, config.match_per_k_tables)
     groups: List[_Group] = []
     n_padded = lanes = 0
 
@@ -516,47 +519,48 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
         res = with_sketch_stats(group_runs(_unpack_runs(flat, rows, caps), widths, index, config), flat)
         return torch.stack([res.tid, res.score]), _stat_row(res.stats)
 
-    for n_rows, l_eff, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
-        n_padded += _round_up(n_rows, B)
-        Bg = min(B, n_rows)
-        inputs = list(zip(group.split(Bg), group_lengths.split(Bg)))
-        if n_rows % Bg:  # the last batch, padded with empty reads: the same shapes as the rest
-            c, n = inputs[-1]
-            inputs[-1] = (torch.nn.functional.pad(c, (0, 0, 0, Bg - c.shape[0])),
-                          torch.nn.functional.pad(n, (0, Bg - n.shape[0])))
-        g = _Group.alloc(n_rows, Bg, caps, inputs, C, index.device)
-        groups.append(g)
-        # Phase 1: sketch + probe + event sizes, every batch, into one
-        # [nb, F] table.  K3 reads its kept count to the host, so a group
-        # that takes it runs eagerly.
-        runs = torch.empty((len(inputs), 2 * Bg * sum(caps) + K + 1), dtype=torch.int64, device=index.device)
-        captured = sum(map(len, fused_groups(l_eff, ks))) == K
-        fn = functools.partial(sketch_probe, caps=caps)
-        for row, (c, n) in zip(runs.unbind(0), inputs):
-            row.copy_(graphs.run(("sketch", Bg, l_eff, caps), fn, c, n) if captured else fn(c, n))
-        # One host read of every batch's sizes.
-        o = 2 * Bg * sum(caps)
-        most_all = read(runs[:, o : o + K].reshape(-1), len(inputs) * K)
-        # Phase 2: expand + group at each batch's widths.
-        for b, (row, table, stat) in enumerate(zip(runs.unbind(0), g.tables.unbind(0), g.stats.unbind(0))):
-            most = most_all[b * K : (b + 1) * K]
-            real = g.real(b)
-            if sizes is not None:
-                _count_batch(sizes, index, real, l_eff, caps)
-            if max(most) <= MAX_WIDTH:
-                widths = tuple(expand_width(m) for m in most)
-                t, st = graphs.run(("group", Bg, caps, widths),
-                                   functools.partial(expand_group, rows=Bg, caps=caps, widths=widths), row)
-                table.copy_(t)
-                stat.copy_(st)
-                lanes += real * sum(widths)
-                continue
-            # A read past K4's widest row: row slices, eagerly, over the real reads.
-            part = [(start[:real], length[:real]) for start, length in _unpack_runs(row, Bg, caps)]
-            res = with_sketch_stats(match_runs(part, B, _grouper(index, config), read, sizes=list(most)), row)
-            g.put(b, res)
-            lanes += res.lanes
-        del runs
+    with StepGraphs(index.device, index.graphs) as graphs:
+        for n_rows, l_eff, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
+            n_padded += _round_up(n_rows, B)
+            Bg = min(B, n_rows)
+            inputs = list(zip(group.split(Bg), group_lengths.split(Bg)))
+            if n_rows % Bg:  # the last batch, padded with empty reads: the same shapes as the rest
+                c, n = inputs[-1]
+                inputs[-1] = (torch.nn.functional.pad(c, (0, 0, 0, Bg - c.shape[0])),
+                              torch.nn.functional.pad(n, (0, Bg - n.shape[0])))
+            g = _Group.alloc(n_rows, Bg, caps, inputs, C, index.device)
+            groups.append(g)
+            # Phase 1: sketch + probe + event sizes, every batch, into one
+            # [nb, F] table.  K3 reads its kept count to the host, so a group
+            # that takes it runs eagerly.
+            runs = torch.empty((len(inputs), 2 * Bg * sum(caps) + K + 1), dtype=torch.int64, device=index.device)
+            captured = sum(map(len, fused_groups(l_eff, ks))) == K
+            fn = functools.partial(sketch_probe, caps=caps)
+            for row, (c, n) in zip(runs.unbind(0), inputs):
+                row.copy_(graphs.run(("sketch", Bg, l_eff, caps, fields), fn, c, n) if captured else fn(c, n))
+            # One host read of every batch's sizes.
+            o = 2 * Bg * sum(caps)
+            most_all = read(runs[:, o : o + K].reshape(-1), len(inputs) * K)
+            # Phase 2: expand + group at each batch's widths.
+            for b, (row, table, stat) in enumerate(zip(runs.unbind(0), g.tables.unbind(0), g.stats.unbind(0))):
+                most = most_all[b * K : (b + 1) * K]
+                real = g.real(b)
+                if sizes is not None:
+                    _count_batch(sizes, index, real, l_eff, caps)
+                if max(most) <= MAX_WIDTH:
+                    widths = tuple(expand_width(m) for m in most)
+                    t, st = graphs.run(("group", Bg, caps, widths, fields),
+                                       functools.partial(expand_group, rows=Bg, caps=caps, widths=widths), row)
+                    table.copy_(t)
+                    stat.copy_(st)
+                    lanes += real * sum(widths)
+                    continue
+                # A read past K4's widest row: row slices, eagerly, over the real reads.
+                part = [(start[:real], length[:real]) for start, length in _unpack_runs(row, Bg, caps)]
+                res = with_sketch_stats(match_runs(part, B, _grouper(index, config), read, sizes=list(most)), row)
+                g.put(b, res)
+                lanes += res.lanes
+            del runs
     return _match_tables(groups, index, config, sketch_match_step, lanes, n_padded, sizes, read)
 
 

@@ -37,9 +37,9 @@ from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 STAGES = {"fused": {"match", "classes", "em_assign", "quant_fused", "quant_fused_per_s", "index_upload"},
           "streamed": {"stream_match", "classes", "em_assign", "index_upload"},
           "sharded": {"stream_match", "classes", "em_assign"}}
-COUNTERS = {"graphs.capture", "graphs.captures", "graphs.reserved_bytes", "match.groups", "match.host_reads",
-            "em.iterations"}
-GRAPHS = {"graphs.capture", "graphs.captures", "graphs.reserved_bytes"}
+COUNTERS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes",
+            "match.groups", "match.host_reads", "em.iterations"}
+GRAPHS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes"}
 
 
 @pytest.fixture(scope="module")
