@@ -189,6 +189,19 @@ without printing its result line:
                 codes;
                 K1, K2, K3, K4, K4-int64, P and E each launched in the
                 phase;
+  graph-store   the match stage's graph store past its bound
+                (utils/step_graphs.MAX_GRAPHS) on the GENCODE k = 31
+                index (gencode's, or built as it builds it): the
+                long-read cell's lengths (GRAPH_STORE_READS whole
+                transcripts cut to 500-2,560 bases: length groups to pad
+                2,560, the two longest through K3 and an eager phase 1)
+                under GRAPH_STORE_CHAINS chain fractions in turn, for
+                GRAPH_STORE_ROUNDS rounds: each call's tables and stats
+                equal to its config's eager per-batch path, the first
+                round capturing more keys than the store keeps and
+                evicting, and the card's reserved memory after the last
+                round under RESERVED_GROWTH_MIB above its level after
+                the second;
   stages        the first per-stage device profile at GENCODE width,
                 through the profile scripts' functions
                 (scripts/profile_*_torch.py) on gencode's transcriptome,
@@ -324,10 +337,15 @@ GENCODE_FILE_READS = 8_388_608
 RESERVED_CALLS = 200  # gencode: quants on one index whose reserved memory may grow
 RESERVED_GROWTH_MIB = 64  # by less than this after the first two
 STAGES_FEED_READS = 2_097_152  # the stages phase's FASTQ for the feed's rates
+# The graph-store phase: reads, chain fractions run in turn, and rounds of them.
+GRAPH_STORE_READS = 1 << 16
+GRAPH_STORE_CHAINS = (0.9, 0.8, 0.7)
+GRAPH_STORE_ROUNDS = 4
 STEP_EM = ("iteration", "e_step", "m_step", "assign")  # profile_step_torch.profile_em's measurements
 L2_BYTES = 50 * 2**20
 PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck", "fuzz",
-          "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "gencode", "stages", "samples")
+          "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "gencode", "graph-store", "stages",
+          "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
 RANK_JOIN_S = 420  # a world of rank processes is killed after this long
@@ -2435,10 +2453,11 @@ def phase_cli_stream(torch, ctx):
     print(f"[cli-stream] CSV == in-process quantify_streamed ({len(got)} rows, max rel diff {rel:.3g})")
 
 
-def gencode_indexes(torch, seqs, launches):
-    """The GENCODE-scale indexes built on the card, k = 31 and ks (21, 31),
-    each k held to the JAX package's build (GENCODE_INDEX) bit for bit:
-    {ks: (artifact, DeviceIndex)}.  K3's launches go into `launches`."""
+def gencode_indexes(torch, seqs, launches, kss=((31,), (21, 31))):
+    """The GENCODE-scale indexes built on the card, k = 31 and ks (21, 31)
+    (or those of kss), each k held to the JAX package's build
+    (GENCODE_INDEX) bit for bit: {ks: (artifact, DeviceIndex)}.  K3's
+    launches go into `launches`."""
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.index.artifact import to_device
     from sketch_rna_tpu_torch.index.build import build_index
@@ -2447,7 +2466,7 @@ def gencode_indexes(torch, seqs, launches):
     recs = fasta_records(seqs, "T")
     n_bases = sum(s.size for s in seqs)
     out = {}
-    for ks in ((31,), (21, 31)):
+    for ks in kss:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2688,6 +2707,66 @@ def _reserved_growth(torch, index, packed, config, calls=RESERVED_CALLS):
     require(growth < RESERVED_GROWTH_MIB and sum(captures[2:]) == 0,
             f"reserved memory grew {growth:.1f} MiB over {calls - 2} quants on one index "
             f"(bound {RESERVED_GROWTH_MIB} MiB), {sum(captures[2:])} graphs captured after the first two")
+
+
+def phase_graph_store(torch, ctx):
+    """The graph store past its bound (see the module docstring): every
+    call equal to its config's eager path, evictions in the first round,
+    no reserved memory grown after the second."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+
+    from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.pipeline import length_groups, match_rows, sketch_match_step
+    from sketch_rna_tpu_torch.utils.step_graphs import MAX_GRAPHS
+    from sketch_rna_tpu_torch.utils.synth import gencode_transcriptome, sample_reads
+    from sketch_rna_tpu_torch.utils.timing import PhaseTimer
+
+    if "gencode" in ctx:
+        seqs, index = ctx["gencode"]["seqs"], ctx["gencode"]["indexes"][(31,)][1]
+    else:
+        seqs = gencode_transcriptome()
+        index = gencode_indexes(torch, seqs, collections.Counter(), kss=((31,),))[(31,)][1]
+    # Whole transcripts (all under 2,560 bases), each cut to a length drawn
+    # uniformly from 500-2,560, as the long-read mix cuts its reads.
+    codes, lengths = sample_reads(seqs, GRAPH_STORE_READS, 2560, 2560, seed=21)
+    lengths = np.minimum(lengths, np.random.default_rng(21).integers(500, 2561, lengths.size)).astype(np.int32)
+    codes[np.arange(2560)[None, :] >= lengths[:, None]] = 0
+    groups = [(pad, int(lengths[rows].size)) for pad, rows in length_groups(lengths, 2560)]
+    base = QuantConfig(kmer_lengths=(31,), batch_size=BATCH, em_dtype="float64")
+    configs = [dataclasses.replace(base, chain_fraction=f) for f in GRAPH_STORE_CHAINS]
+    codes_t = torch.from_numpy(codes)
+    want = [match_rows(index, codes_t, lengths, cfg, step=sketch_match_step) for cfg in configs]
+    store = index.graphs
+    rounds = []
+    for r in range(GRAPH_STORE_ROUNDS):
+        counts = collections.Counter()
+        for cfg, w in zip(configs, want):
+            with PhaseTimer().opened() as timer:
+                got = match_rows(index, codes_t, lengths, cfg)
+            require(torch.equal(got[0], w[0]) and torch.equal(got[1], w[1]) and got[2] == w[2]
+                    and all(int(got[3][k]) == int(w[3][k]) for k in w[3]),
+                    f"graph-store round {r}, chain fraction {cfg.chain_fraction}: the graph path's tables or stats "
+                    f"differ from the eager per-batch path's")
+            counts.update({k: timer.counts[k] for k in ("graphs.captures", "graphs.replays", "graphs.evictions",
+                                                        "match.eager_batches")})
+        torch.cuda.synchronize()
+        rounds.append(dict(counts, reserved=torch.cuda.memory_reserved(), kept=len(store.entries)))
+    growth = (rounds[-1]["reserved"] - rounds[1]["reserved"]) / 2**20
+    print(f"[graph-store] {GRAPH_STORE_READS} reads of 500-2,560 bases on the GENCODE k = 31 index, length groups "
+          f"(pad, reads) {groups}, chain fractions {GRAPH_STORE_CHAINS}: every call == its eager per-batch path; "
+          f"per round {[{k: v for k, v in c.items()} for c in rounds]}; reserved memory grew {growth:.1f} MiB "
+          f"after round 2 (store bound {MAX_GRAPHS})")
+    first = rounds[0]
+    require(first["graphs.captures"] > MAX_GRAPHS and first["graphs.evictions"] > 0
+            and all(c["kept"] == MAX_GRAPHS for c in rounds),
+            f"graph-store: the first round captured {first['graphs.captures']} graphs and evicted "
+            f"{first['graphs.evictions']}; the store should pass its bound of {MAX_GRAPHS}")
+    require(growth < RESERVED_GROWTH_MIB,
+            f"graph-store: reserved memory grew {growth:.1f} MiB after the second round (bound "
+            f"{RESERVED_GROWTH_MIB} MiB)")
 
 
 def _time_expand(torch, results, tag, index, c, n, caps, f):
@@ -3132,6 +3211,7 @@ def main() -> int:
         "stream-c3": lambda: phase_stream_c3(torch, ctx),
         "cli-stream": lambda: phase_cli_stream(torch, ctx),
         "gencode": lambda: phase_gencode(torch, results, ctx),
+        "graph-store": lambda: phase_graph_store(torch, ctx),
         "stages": lambda: phase_stages(torch, results, ctx, smi),
         "samples": phase_samples,
     }

@@ -7,7 +7,9 @@ feeds the sort-based dedup of reads too long for the fused kernels and
 the index build.  On a CUDA tensor it launches the hand-written kernel
 (two passes: count per tile, then write at the tiles' offsets) or
 raises; on a CPU tensor it runs the plain version,
-sketch/fracminhash.hash_kept.
+sketch/fracminhash.hash_kept.  Either reads the batch's largest kept
+count to the host, counted as one match.host_reads on the open timer
+(utils/timing.py; none is open in the index build).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from sketch_rna_tpu_torch import kernels
 from sketch_rna_tpu_torch.hash.sketch_kernel import check_batch
 from sketch_rna_tpu_torch.sketch.fracminhash import fracminhash_threshold, hash_kept, kept_width
+from sketch_rna_tpu_torch.utils.timing import HOST_READS, count
 
 
 def nthash_sketch(
@@ -38,6 +41,8 @@ def nthash_sketch(
     nk = L - k + 1
     if k < 1 or nk < 1:
         raise ValueError(f"need 1 <= k <= L (L={L}, k={k})")
+    if B:
+        count(HOST_READS)  # the largest kept count, read below or in hash_kept
     if codes.device.type == "cpu":
         return hash_kept(codes, lengths, k, fraction, pow2)
     device = codes.device

@@ -70,7 +70,7 @@ from sketch_rna_tpu_torch.sketch.dispatch import fused_groups, sketch_ops, sketc
 from sketch_rna_tpu_torch.utils.profiling import maybe_trace
 from sketch_rna_tpu_torch.utils.roofline import probe_shape_bytes
 from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
-from sketch_rna_tpu_torch.utils.timing import count, host_read, phase, quant_call
+from sketch_rna_tpu_torch.utils.timing import count, declare, host_read, phase, quant_call
 
 log = logging.getLogger(__name__)
 
@@ -99,9 +99,12 @@ class QuantResult:
     graphs.evictions, graphs.reserved_bytes, match.groups (length groups matched, summed over a stream's chunks),
     match.host_reads (blocking device-to-host reads of the match stage,
     each counted once where the program asks for it: a torch.unique or a
-    boolean-mask index of the streamed class dedup too) and
-    em.iterations.  A quant that retries (a streamed wide-block spill)
-    reports the retry alone.
+    boolean-mask index of the streamed class dedup too, and K3's kept
+    width, one a batch slice and k that K3 sketches),
+    match.eager_batches (batches whose sketch ran eagerly because their
+    length group takes K3) with the span match.eager_sketch (seconds in
+    those groups' phase 1), and em.iterations.  A quant that retries (a
+    streamed wide-block spill) reports the retry alone.
 
     sizes: the work a fused quant did, counted on the host from the
     shapes the engine already knows (no device sync), the inputs of
@@ -308,12 +311,16 @@ def length_groups(lengths: np.ndarray, padded_len: int) -> List[Tuple[int, Union
     return [(pad, np.flatnonzero(pads == pad)) for pad in unique_pads]
 
 
-def _pinned(x: torch.Tensor) -> torch.Tensor:
-    """x copied into page-locked host memory (torch's caching host
-    allocator, which keeps the block until the copies that read it end)."""
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    out.copy_(x)
-    return out
+def _pinned(x: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x, or x's rows `rows`, copied into page-locked host memory (torch's
+    caching host allocator, which keeps the block until the copies that
+    read it end).  Rows are gathered straight into the pinned block: one
+    pass over their bytes, where a gather and then a copy takes two."""
+    if rows is None:
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x)
+    out = torch.empty((rows.numel(),) + tuple(x.shape[1:]), dtype=x.dtype, pin_memory=True)
+    return torch.index_select(x, 0, rows, out=out)
 
 
 def _groups(index: DeviceIndex, codes: torch.Tensor, lengths_np: np.ndarray, config: QuantConfig):
@@ -331,10 +338,12 @@ def _groups(index: DeviceIndex, codes: torch.Tensor, lengths_np: np.ndarray, con
         n_rows = int(lengths_np[rows].size)
         width = min(pad, codes.shape[1])
         l_eff = min(width, _round_up(max(int(lengths_np[rows].max()), max(ks)), 8))
-        sel = rows if isinstance(rows, slice) else torch.from_numpy(rows).to(codes.device)
-        group, group_lengths = codes[sel, :l_eff], torch.from_numpy(lengths_np[rows].astype(np.int32))
+        sel = None if isinstance(rows, slice) else torch.from_numpy(rows).to(codes.device)
+        group_lengths = torch.from_numpy(lengths_np[rows].astype(np.int32))
         if pin:
-            group, group_lengths = _pinned(group), _pinned(group_lengths)
+            group, group_lengths = _pinned(codes[:, :l_eff], sel), _pinned(group_lengths)
+        else:
+            group = codes[:, :l_eff] if sel is None else codes[sel, :l_eff]
         yield (n_rows, l_eff, group.contiguous().to(index.device, non_blocking=True),
                group_lengths.to(index.device, non_blocking=True),
                tuple(config.sketch_capacity_for(k, l_eff) for k in ks))
@@ -493,7 +502,11 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
 
     On the open timer (utils/timing.py; a quant call's, or one a tool
     opens around this call) it counts match.groups (in _groups),
-    match.host_reads (each default read) and its graphs' captures.
+    match.host_reads (each default read, and K3's kept-width reads) and
+    its graphs' captures; a group that takes K3 adds its batches to
+    match.eager_batches and its phase 1's host seconds to the span
+    match.eager_sketch (no device sync of its own: K3 syncs each batch).
+    Both are declared, so they read 0 where no group takes K3.
     """
     ks = tuple(index.kmer_lengths)
     K = len(ks)
@@ -502,6 +515,8 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     fields = (config.sketch_fraction, config.chain_fraction, C, config.match_per_k_tables)
     groups: List[_Group] = []
     n_padded = lanes = 0
+    count("match.eager_batches", 0)
+    declare("match.eager_sketch")
 
     def sketch_probe(c, n, caps):
         sketches = sketch_reads(c, n, ks, config.sketch_fraction, caps)
@@ -534,10 +549,15 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
             # [nb, F] table.  K3 reads its kept count to the host, so a group
             # that takes it runs eagerly.
             runs = torch.empty((len(inputs), 2 * Bg * sum(caps) + K + 1), dtype=torch.int64, device=index.device)
-            captured = sum(map(len, fused_groups(l_eff, ks))) == K
             fn = functools.partial(sketch_probe, caps=caps)
-            for row, (c, n) in zip(runs.unbind(0), inputs):
-                row.copy_(graphs.run(("sketch", Bg, l_eff, caps, fields), fn, c, n) if captured else fn(c, n))
+            if sum(map(len, fused_groups(l_eff, ks))) == K:
+                for row, (c, n) in zip(runs.unbind(0), inputs):
+                    row.copy_(graphs.run(("sketch", Bg, l_eff, caps, fields), fn, c, n))
+            else:
+                with phase("match.eager_sketch", inner=True):
+                    for row, (c, n) in zip(runs.unbind(0), inputs):
+                        row.copy_(fn(c, n))
+                count("match.eager_batches", len(inputs))
             # One host read of every batch's sizes.
             o = 2 * Bg * sum(caps)
             most_all = read(runs[:, o : o + K].reshape(-1), len(inputs) * K)

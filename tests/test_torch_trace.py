@@ -38,8 +38,10 @@ STAGES = {"fused": {"match", "classes", "em_assign", "quant_fused", "quant_fused
           "streamed": {"stream_match", "classes", "em_assign", "index_upload"},
           "sharded": {"stream_match", "classes", "em_assign"}}
 COUNTERS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes",
-            "match.groups", "match.host_reads", "em.iterations"}
+            "match.groups", "match.host_reads", "match.eager_batches", "match.eager_sketch", "em.iterations"}
 GRAPHS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes"}
+# What match_scan declares (the fused and streamed engines' match), beside its graphs.
+SCAN = GRAPHS | {"match.eager_batches", "match.eager_sketch"}
 
 
 @pytest.fixture(scope="module")
@@ -152,10 +154,10 @@ def test_inner_spans_do_not_log(caplog):
 @pytest.mark.parametrize("engine", ["fused", "streamed", "sharded"])
 def test_each_engine_reports_its_stage_keys_and_counters(problem, engine):
     res = _quant(problem, engine)
-    # The sharded engine's batch step runs eagerly: it makes no graphs.
-    assert set(res.timing) == STAGES[engine] | (COUNTERS - GRAPHS if engine == "sharded" else COUNTERS)
+    # The sharded engine's batch step runs eagerly: it makes no graphs and no match_scan.
+    assert set(res.timing) == STAGES[engine] | (COUNTERS - SCAN if engine == "sharded" else COUNTERS)
     assert all(res.timing[key] > 0 for key in STAGES[engine] - {"index_upload"})
-    assert all(res.timing[key] == 0 for key in GRAPHS & set(res.timing))  # no card, no capture
+    assert all(res.timing[key] == 0 for key in SCAN & set(res.timing))  # no card, no capture, no K3
     assert res.timing["em.iterations"] == res.em_iterations > 0
 
 
