@@ -37,6 +37,18 @@ without printing its result line:
                 through as many buffers, each held until its turn comes
                 round, so no output stays in the L2), timed in turns
                 plain, kernel, kernel, plain; the host is left out;
+  group         G (the grouping kernel: sort, run counts, chain test,
+                top-C and the per-k intersection in one launch) against
+                its plain version, the chain of K4 sorts and PyTorch
+                operations (group_event_parts_plain), bit for bit: tables,
+                candidate_spilled and candidate_spilled_per_k, at every
+                row width 2 .. 1024 at one k and at two or three ks, C 8
+                and 64, chain fractions 0.9 (the int32 test) and 1/sqrt(2)
+                (the float32 one), 250,000 and 2^28 transcripts (past the
+                int32 (rank, tid) packing), 2,047 rows and 1, edge rows
+                (no event, one event, one tid in every lane, ties, every
+                lane its own tid, an empty k); G's times on the first
+                GENCODE batch's rows are the gencode phase's;
   merge         the merge kernel against bitonic_merge_pair, bit for bit,
                 at every row width 2 .. 65536, int32 and int64, one row,
                 B rows and B - 1 from an odd address, over random rows,
@@ -171,15 +183,16 @@ without printing its result line:
                 bucket; then 2^20 reads of 150 bp (seed 7, padded to 256) at
                 float64 EM, fused at k = 31 and at ks (21, 31): timed after a
                 warm-up with the roofline line, no lost work, every batch
-                equal to the global-sort matcher (the top-C key types
-                printed) and the graph path equal to the eager per-batch
-                path (the graphs captured a quant and its peak memory
-                printed), the streamed engine within 1e-9 relative, at
-                k = 31 --em-segsum on within 1e-9; the first batch of each
+                equal to the global-sort matcher and the graph path equal
+                to the eager per-batch path (the graphs captured a quant,
+                the batches G grouped and its peak memory printed), the
+                streamed engine within 1e-9 relative, at k = 31
+                --em-segsum on within 1e-9; the first batch of each
                 through the kernels and the plain functions (equal tables),
                 K1 (k = 31) and K2 (ks 21, 31) timed there at [8192, 152],
-                and E on the k = 31 batch's posting runs (its bound from
-                that batch's events); 200 k = 31 quants on one index whose
+                E on the k = 31 batch's posting runs (its bound from that
+                batch's events), and G on each batch's event rows against
+                the plain grouping chain; 200 k = 31 quants on one index whose
                 reserved device memory grows by under 64 MiB after the
                 first two, with no graph captured after them;
                 then 8,388,608 reads (~2.7 GB) from a FASTQ through the CLI
@@ -341,10 +354,23 @@ STAGES_FEED_READS = 2_097_152  # the stages phase's FASTQ for the feed's rates
 GRAPH_STORE_READS = 1 << 16
 GRAPH_STORE_CHAINS = (0.9, 0.8, 0.7)
 GRAPH_STORE_ROUNDS = 4
+# The group phase: G against the plain chain at every row width 2 .. 1024,
+# at one k and at two or three ks, on GROUP_ROWS rows (a ragged last
+# block), each case at both candidate capacities, both chain tests (the
+# int32 one at 9 / 10, the float32 one at a fraction with no small p / q)
+# and both transcript counts (the second past the int32 (rank, tid)
+# packing of the plain chain's top-C sort).
+GROUP_ROWS = 2047
+GROUP_WIDTHS = tuple((1 << e,) for e in range(1, 11)) + (
+    (2, 1024), (128, 256), (256, 128), (256, 256), (512, 64), (1024, 1024), (64, 128, 256), (1024, 2, 16),
+    (32, 32, 32))
+GROUP_CAPACITIES = (8, 64)
+GROUP_FRACTIONS = (0.9, 0.5 ** 0.5)
+GROUP_TRANSCRIPTS = (250_000, 1 << 28)
 STEP_EM = ("iteration", "e_step", "m_step", "assign")  # profile_step_torch.profile_em's measurements
 L2_BYTES = 50 * 2**20
-PHASES = ("kernels", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck", "fuzz",
-          "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "gencode", "graph-store", "stages",
+PHASES = ("kernels", "group", "merge", "probe-segsum", "sample", "sample-multik", "scale", "scale-multik", "crosscheck",
+          "fuzz", "spill", "long-reads", "stream", "sharded", "stream-c3", "cli-stream", "gencode", "graph-store", "stages",
           "samples")
 # The sharded phase's rank processes: (world size, meshes run in that world).
 SHARDED_WORLDS = ((2, ((1, 2), (2, 1))), (4, ((2, 2),)))
@@ -369,6 +395,9 @@ KERNELS = {
     "S": ("segsum_apply", "sketch_rna_tpu_torch/csrc/segsum.cu", "sketch_rna_tpu/em/segsum.py:114"),
     # No TPU kernel expands: the JAX package's static-shaped expansion runs in XLA.
     "E": ("row_expand", "sketch_rna_tpu_torch/csrc/expand.cu", "sketch_rna_tpu/match/rowmatch.py:74"),
+    # No TPU kernel groups: the JAX package's run counting, top-C and per-k
+    # intersection run in XLA.
+    "G": ("group_rows", "sketch_rna_tpu_torch/csrc/group.cu", "sketch_rna_tpu/match/rowmatch.py:338"),
 }
 
 
@@ -742,6 +771,147 @@ def phase_kernels(torch, results, ctx, parent=None):
         elif parent:
             line += f"; the parent ({parent.name}) does not time it"
         print(line)
+
+
+def _group_case(torch, gen, B, widths, T):
+    """Per-k [B, W_k] int32 event rows on the card, from gen, tids below T.
+    A read draws its events at every k from one pool of 1 to 1,024 tids
+    (t0 + j * stride mod T), j skewed toward the pool's first tids so the
+    counts differ; a random number of its lanes hold events (all of them in
+    a quarter of the rows), in random lanes among the sentinels.  Rows 0-6
+    (where B > 6): no event at any k; one event; every lane one tid; 16
+    tids tied (their order is the tid's); every lane its own tid (past 8
+    candidates and past a k's table of min(16, W)); no event at the first
+    k only (it passes vacuously); 8 tids at the top of the range."""
+    I32_MAX = 2**31 - 1
+    pools = torch.tensor([1, 2, 3, 5, 16, 64, 1024], device=DEVICE)
+    m = pools[torch.randint(0, len(pools), (B,), generator=gen, device=DEVICE)]
+    t0 = torch.randint(0, T, (B,), generator=gen, device=DEVICE)
+    stride = torch.randint(1, max(T // 1024, 2), (B,), generator=gen, device=DEVICE)
+    parts = []
+    for ki, W in enumerate(widths):
+        lane = torch.arange(W, device=DEVICE)
+        u = torch.rand((B, W), generator=gen, device=DEVICE)
+        tid = (t0[:, None] + (u * u * m[:, None]).long() * stride[:, None]) % T
+        n_valid = torch.randint(0, W + 1, (B,), generator=gen, device=DEVICE)
+        n_valid[torch.rand(B, generator=gen, device=DEVICE) < 0.25] = W
+        key = torch.where(lane < n_valid[:, None], tid, I32_MAX)
+        if B > 6:
+            key[0] = I32_MAX
+            key[1] = I32_MAX
+            key[1, W - 1] = t0[1]
+            key[2] = t0[2]
+            key[3] = (t0[3] + lane % 16) % T
+            key[4] = (t0[4] + lane) % T
+            if ki == 0:
+                key[5] = I32_MAX
+            key[6] = T - 1 - lane % 8
+        perm = torch.argsort(torch.rand((B, W), generator=gen, device=DEVICE), dim=1)
+        parts.append(key.gather(1, perm).to(torch.int32))
+    return parts
+
+
+def _group_same(torch, got, want) -> bool:
+    """Equal tables and both spill counts."""
+    return (all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask"))
+            and all(int(got.stats[k]) == int(want.stats[k]) for k in ("candidate_spilled", "candidate_spilled_per_k")))
+
+
+def phase_group(torch, results):
+    """G (group_event_parts on the card) against its plain version
+    (group_event_parts_plain: K4 sorts and PyTorch operations on the same
+    card) bit for bit: tables, candidate_spilled and candidate_spilled_per_k,
+    over every case of GROUP_WIDTHS x GROUP_TRANSCRIPTS x GROUP_CAPACITIES
+    x GROUP_FRACTIONS on _group_case's rows, and on one row of each width
+    set; one launch a call.  The cases must spill at C and per k, and the
+    plain chain must take both of its top-C key types."""
+    import collections
+
+    from sketch_rna_tpu_torch.match.group import group_rows
+    from sketch_rna_tpu_torch.match.rowmatch import group_event_parts, group_event_parts_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    seen = collections.Counter()
+    keys = collections.Counter()
+    t0 = time.perf_counter()
+    with _top_c_keys(keys):
+        for widths in GROUP_WIDTHS:
+            for T in GROUP_TRANSCRIPTS:
+                for B in (GROUP_ROWS, 1):
+                    parts = _group_case(torch, gen, B, widths, T)
+                    for C in GROUP_CAPACITIES:
+                        for fraction in GROUP_FRACTIONS:
+                            kw = dict(chain_fraction=fraction, candidate_capacity=C, num_transcripts=T)
+                            before = group_rows.launches
+                            got = group_event_parts(parts, **kw)
+                            want = group_event_parts_plain(parts, **kw)
+                            torch.cuda.synchronize()
+                            require(group_rows.launches == before + 1, f"G did not launch once at widths {widths}")
+                            require(_group_same(torch, got, want),
+                                    f"G differs from the plain chain at [{B}, {widths}] T={T} C={C} fraction "
+                                    f"{fraction}: stats {({k: int(v) for k, v in got.stats.items()})} against "
+                                    f"{({k: int(v) for k, v in want.stats.items()})}")
+                            seen["cases"] += 1
+                            seen["candidates"] += int(got.mask.sum())
+                            seen["spilled"] += int(got.stats["candidate_spilled"]) > 0
+                            seen["spilled_per_k"] += int(got.stats["candidate_spilled_per_k"]) > 0
+            print(f"[group] widths {widths}: G == the plain chain over {len(GROUP_TRANSCRIPTS)} transcript counts, "
+                  f"rows {GROUP_ROWS} and 1, C {GROUP_CAPACITIES}, chain fractions {GROUP_FRACTIONS}")
+    require(seen["spilled"] > 0 and seen["spilled_per_k"] > 0, f"the group cases never spilled: {dict(seen)}")
+    require(keys["int32"] > 0 and keys["int64"] > 0, f"the plain chain's top-C took key types {dict(keys)}")
+    record(results, "G", max_abs_err=0)
+    print(f"[group] {seen['cases']} cases bit-equal ({seen['candidates']} candidates; {seen['spilled']} cases spilled "
+          f"at C, {seen['spilled_per_k']} per k; the plain chain's top-C keys {dict(keys)}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _event_parts(torch, index, config, c, n, caps):
+    """One batch's per-k event rows as the path makes them (the sketch
+    kernels, P, E), each k at its width for the batch's most events."""
+    from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
+    from sketch_rna_tpu_torch.match.expand import row_expand
+    from sketch_rna_tpu_torch.match.rowmatch import expand_width
+    from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
+
+    ks = tuple(index.kmer_lengths)
+    parts = []
+    for (h, m, _), k in zip(sketch_reads(c, n, ks, config.sketch_fraction, caps), ks):
+        start, length = probe_index(h, m, index.per_k[k])
+        parts.append(row_expand(start, length, index.per_k[k].postings, expand_width(int(length.sum(dim=1).max()))))
+    return parts
+
+
+def _time_group(torch, results, tag, index, config, c, n, caps):
+    """G on a batch's event rows (_event_parts) at the widths the path gives
+    them: equal to the plain chain, then timed per launch against that
+    chain's whole call (in turns), with its bound (utils/roofline.py
+    group_work); one k's times go to the kernel's entry, several ks' under
+    "multik"."""
+    from sketch_rna_tpu_torch.match.rowmatch import group_event_parts, group_event_parts_plain
+    from sketch_rna_tpu_torch.utils.roofline import bound, group_work
+
+    parts = _event_parts(torch, index, config, c, n, caps)
+    kw = dict(chain_fraction=config.chain_fraction, candidate_capacity=config.candidate_capacity,
+              num_transcripts=index.num_transcripts)
+    got, want = group_event_parts(parts, **kw), group_event_parts_plain(parts, **kw)
+    require(_group_same(torch, got, want), f"{tag}: G differs from the plain chain on the first batch's rows")
+    nbytes, ops = group_work(c.shape[0], [p.shape[1] for p in parts], config.candidate_capacity)
+    arg_sets = rotation(tuple(parts), sum(4 * p.numel() for p in parts))
+    ms, plain_ms = in_turns(torch, lambda *p: group_event_parts(list(p), **kw),
+                            lambda *p: group_event_parts_plain(list(p), **kw), arg_sets, "group_kernel")
+    call_ms = device_ms(lambda *p: group_event_parts(list(p), **kw), arg_sets)
+    b_ms, by = bound(nbytes, ops)
+    shape = " + ".join(f"[{p.shape[0]}, {p.shape[1]}]" for p in parts) + f" k={','.join(map(str, index.kmer_lengths))}"
+    timed = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, bound_us=b_ms * 1e3,
+                 bound_share=b_ms / ms, bound_bytes=nbytes, bound_ops=ops, library_ms=None, shape=shape,
+                 timed="per launch", candidates=int(got.mask.sum()))
+    if len(parts) == 1:
+        record(results, "G", **timed)
+    else:
+        record(results, "G", multik=timed)
+    print(f"[{tag}] G {shape} (the first batch's rows, {timed['candidates']} candidates): == the plain chain; kernel "
+          f"{ms:.5f} ms a launch ({call_ms:.5f} ms a call), the plain chain {plain_ms:.5f} ms a call, bound "
+          f"{b_ms * 1e3:.3f} us ({by}: {nbytes} bytes, {ops} operations), {100 * b_ms / ms:.1f}% of bound")
 
 
 def _expand_runs(torch, rng, B, S, P):
@@ -1318,7 +1488,9 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
 
 def _first_batch(torch, tag, index, config, codes, lengths, L):
     """The first batch through the kernels and through the plain functions:
-    equal tables.  Returns the int32 and int64 rows the kernels' K4 sorted."""
+    equal tables, by the default route (the grouping kernel G) and by the
+    plain grouping chain on the kernels' sorts.  Returns the int32 and
+    int64 rows that chain's K4 sorted."""
     import numpy as np
 
     from sketch_rna_tpu_torch.match.bucket_lookup import probe_index_plain
@@ -1341,6 +1513,9 @@ def _first_batch(torch, tag, index, config, codes, lengths, L):
                              lookup=probe_index_plain)
     same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask"))
     require(same, f"{tag} first batch: kernel candidate tables differ from the plain functions'")
+    dflt = sketch_match_step(c, n, index, config, caps)
+    require(all(torch.equal(getattr(dflt, f), getattr(want, f)) for f in ("tid", "score", "mask")),
+            f"{tag} first batch: the default route's (G's) tables differ from the plain functions'")
     print(f"[{tag}] first batch [{B}, {L}] caps {caps}: kernel tables == plain tables "
           f"({int(got.mask.sum())} candidates)")
     return c, n, caps, sorted_rows
@@ -1383,9 +1558,10 @@ def phase_scale(torch, results, ctx):
     n_reads = lengths.size
     packed = PackedReads(codes, lengths, [])
     _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads, ctx)
-    require(launches["K1"] > 0 and launches["K4"] > 0, f"the single-k path skipped a kernel: {launches}")
+    require(launches["K1"] > 0 and launches["G"] > 0, f"the single-k path skipped a kernel: {launches}")
     require(launches["K2"] == launches["K3"] == 0, f"the single-k path ran a multi-k or long-read kernel: {launches}")
-    require(launches["P"] == launches["K1"] == launches["E"], f"P or E did not launch once a batch: {launches}")
+    require(launches["P"] == launches["K1"] == launches["E"] == launches["G"],
+            f"P, E or G did not launch once a batch: {launches}")
 
     L = 104  # round_up(100, 8): the width the quant path cut these reads to
     c, n, (cap,), rows = _first_batch(torch, "scale", index, config, codes, lengths, L)
@@ -1398,6 +1574,7 @@ def phase_scale(torch, results, ctx):
           f"K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.5f}, plain {k4[1]:.5f}")
     record(results, "K1", launches=launches["K1"])
     record(results, "E", launches=launches["E"])
+    record(results, "G", launches=launches["G"])
 
 
 def c3_problem(torch, ctx):
@@ -1444,7 +1621,9 @@ def phase_scale_multik(torch, results, ctx):
     ks, n_reads = config.kmer_lengths, lengths.size
     _, _, launches, ctx["fused_peak_bytes"] = _timed_quant(torch, "scale-multik", index,
                                                            PackedReads(codes, lengths, []), config, n_reads, ctx)
-    require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
+    # A batch whose per-k tables spill groups again merged (K2, P, E, K4):
+    # G launches once a batch that did not.
+    require(launches["K2"] > 0 and 0 < launches["G"] <= launches["K2"],
             f"the multi-k path skipped a kernel: {launches}")
     require(launches["P"] == len(ks) * launches["K2"] == launches["E"],
             f"P or E did not launch once a k and batch: {launches}")
@@ -1464,8 +1643,6 @@ def phase_scale_multik(torch, results, ctx):
           f"plain {k2[1]:.5f}; K4 [{BATCH}, {key.shape[1]}]: kernel {k4[0]:.5f}, plain {k4[1]:.5f}; "
           f"K4-int64 [{BATCH}, {tables.shape[1]}]: kernel {k4w[0]:.5f}, plain {k4w[1]:.5f}")
     record(results, "K2", launches=launches["K2"])
-    record(results, "K4", launches=launches["K4"])
-    record(results, "K4-int64", launches=launches["K4-int64"])
     record(results, "P", launches=launches["P"])
     record(results, "S", launches=segsum_launches)
 
@@ -1514,7 +1691,8 @@ def phase_segsum_quant(torch, ctx):
 def _crosscheck_batches(torch, tag, problem):
     """Every batch of a problem, as the fused engine forms it (match_rows,
     merged regroups included), through the row matcher (sketch_match_step:
-    K1 / K2, P, E, K4 and the merge) and through the global-sort matcher
+    K1 / K2, P, E, G, and K4 and the merge where G does not take a batch)
+    and through the global-sort matcher
     (match/candidates.py: the searchsorted probe, one flat expansion,
     torch.sort), both on the same kernel-made sketches: equal tid, score,
     mask and candidate_spilled, and no event dropped under a budget of the
@@ -1580,11 +1758,14 @@ def _crosscheck_batches(torch, tag, problem):
     require(torch.equal(g_tid, tid) and torch.equal(g_score, score) and g_padded == n_padded
             and all(int(g_stats[k]) == int(stats[k]) for k in stats),
             f"{tag}: the graph path's tables or stats differ from the eager per-batch path's")
+    g_batches = timer.counts["match.group_kernel_batches"]
+    require(g_batches > 0, f"{tag}: the graph path grouped no batch through G")
     print(f"[crosscheck] {tag}: {lengths.size} reads, k = {ks}: all {done['batches']} batches' row-matcher tables "
           f"== the global-sort matcher's ({done['candidates']} candidates compared, 0 events dropped, "
           f"{done['first_passes']} per-k spills regrouped first, candidate_spilled {int(stats['candidate_spilled'])}) "
           f"in {seconds:.1f} s; the graph path (match_scan) == that eager path, tables and stats, every batch "
-          f"({timer.counts['graphs.captures']} graphs captured, {g_seconds:.3f} s, peak device memory {peak} bytes)")
+          f"({timer.counts['graphs.captures']} graphs captured, {g_batches} of {done['batches']} batches grouped by "
+          f"G, {g_seconds:.3f} s, peak device memory {peak} bytes)")
     # The graphs live with the index: two more calls replay them, a call
     # under another chain fraction captures its own, and the first config
     # after it replays again; each equal to its config's eager path.
@@ -1908,6 +2089,7 @@ def phase_long_reads(torch, results):
     print(f"[long-reads] first batch: dedup sort widths {widths}; device ms per call: K3 [{BATCH}, {L}] k=31: "
           f"kernel {k3[0]:.5f}, plain {k3[1]:.5f}")
     record(results, "K3", launches=launches["K3"])
+    record(results, "K4-int64", launches=launches["K4-int64"])
     del c, n
 
     # 20 kb reads (nk_pad 32768): their ~1,000 kept hashes a read sort on
@@ -2194,6 +2376,7 @@ def phase_sharded(torch, results, ctx, smi):
             f"the sharded route skipped a kernel or a batch's merge: {launches}")
     require(launches["P"] == 0, f"the sharded route probed through the bucket table: {launches}")
     record(results, "merge", launches=launches["merge"], partition_launches=launches["merge-partition"])
+    record(results, "K4", launches=launches["K4"])
     c = torch.from_numpy(np.ascontiguousarray(c3["codes"][:BATCH, :104])).to(DEVICE)
     n = torch.from_numpy(c3["lengths"][:BATCH]).to(DEVICE)
     caps = tuple(config.sketch_capacity_for(k, 104) for k in config.kmer_lengths)
@@ -2383,7 +2566,7 @@ def phase_stream_c3(torch, ctx):
     require(abs(total - res.num_mapped) <= 1e-3 * res.num_mapped,
             f"sum of NumReads {total} != reads with a candidate {res.num_mapped}")
     require(res.num_mapped > 0.9 * C3_READS, f"only {res.num_mapped} reads mapped")
-    require(launches["K2"] > 0 and launches["K4"] > 0 and launches["K4-int64"] > 0,
+    require(launches["K2"] > 0 and 0 < launches["G"] <= launches["K2"],
             f"the streamed multi-k path skipped a kernel: {launches}")
     require(launches["P"] == 2 * launches["K2"], f"the streamed probe did not launch P once a k and batch: {launches}")
     print(f"[stream-c3] bucket tables {json.dumps(index.bucket_bytes())} bytes per k, inside the peak above")
@@ -2567,12 +2750,7 @@ def phase_gencode(torch, results, ctx):
         res, _, timed, _ = _timed_quant(torch, tag, index, packed, config, n_reads)
         path.update(timed)
         require(all(res.stats[key] == 0 for key in LOSS_KEYS), f"{tag}: lost work {res.stats}")
-        keys = collections.Counter()
-        with _top_c_keys(keys):
-            _crosscheck_batches(torch, tag, dict(index=index, codes=codes, lengths=lengths, config=config))
-        bits = (n_tx - 1).bit_length()
-        print(f"[{tag}] top-C selections by key type over those batches: {dict(keys)} ({n_tx} transcripts need "
-              f"{bits} tid bits: the int32 (rank, tid) key holds them while a row's score bound + 2 < 2^{31 - bits})")
+        _crosscheck_batches(torch, tag, dict(index=index, codes=codes, lengths=lengths, config=config))
         reset_launches()
         t0 = time.perf_counter()
         st = quantify_streamed(index, packed, config)
@@ -2626,6 +2804,7 @@ def phase_gencode(torch, results, ctx):
               f"{ops} operations), {100 * b_ms / ms:.1f}% of bound")
         if ks == (31,):
             _time_expand(torch, results, tag, index, c, n, caps, f)
+        _time_group(torch, results, tag, index, config, c, n, caps)
         del c, n, got, want
 
     _reserved_growth(torch, indexes[(31,)][1], packed,
@@ -2672,7 +2851,7 @@ def phase_gencode(torch, results, ctx):
 
     print(f"[gencode] launches on the phase's main-path runs (builds, timed quants, streamed runs, segsum, CLI): "
           f"{json.dumps(dict(path))}")
-    missing = [k for k in ("K1", "K2", "K3", "K4", "K4-int64", "P", "E") if path[k] < 1]
+    missing = [k for k in ("K1", "K2", "K3", "G", "P", "E") if path[k] < 1]
     require(not missing, f"gencode: kernels never launched: {missing}")
     for name in results:
         record(results, name, launches_gencode=path[name])
@@ -2949,7 +3128,7 @@ def phase_stages(torch, results, ctx, smi):
     launches = read_launches()
     for name in results:
         record(results, name, launches_stages=launches[name])
-    missing = [k for k in ("K1", "K4", "P") if launches[k] < 1]
+    missing = [k for k in ("K1", "G", "P") if launches[k] < 1]
     require(not missing, f"stages: kernels never launched in the traced quant: {missing}")
     batches = -(-int(lengths.size) // BATCH)
     device_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3196,6 +3375,7 @@ def main() -> int:
     ctx = {}  # data that several phases share (the c3 index and reads)
     runs = {
         "kernels": lambda: phase_kernels(torch, results, ctx, args.parent.resolve() if args.parent else None),
+        "group": lambda: phase_group(torch, results),
         "merge": lambda: phase_merge(torch, results),
         "probe-segsum": lambda: phase_probe_segsum(torch, results, ctx),
         "sample": phase_sample,

@@ -19,7 +19,8 @@ order:
   probe   match/bucket_lookup.probe_index (P), one call a k;
   expand  match/rowmatch.row_expand_from_runs, one call a k, given the
           event sizes (the one host sync that reads them is left out);
-  group   rowmatch.group_event_parts (K4 sorts, run counting, top-C);
+  group   rowmatch.group_event_parts (the kernel G where it takes the
+          batch: one launch; else K4 sorts, run counting, top-C);
   step    the whole sketch_match_step, its host syncs included;
   scan    pipeline.match_scan over all --reads reads, already on the
           device (the fused and streamed engines' match stage: one host

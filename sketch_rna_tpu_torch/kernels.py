@@ -67,6 +67,9 @@ _SIGNATURES = {
     "row_expand_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     # hashes, mask, packed, out_start, out_length, n, nb, mb, shift, stream
     "bucket_probe_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # keys, widths, caps (host arrays of K), K, B, C, p, q, f, out_tid,
+    # out_score, out_mask, stats, stream
+    "group_launch": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P],
     # values, n, perm, is_start, seg_end, seg_live, carry_tid, carry_on,
     # scratch, flags, ps, nblk, T, stream
     "segsum_f64_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -25,6 +25,12 @@ int32 where they fit and int64 past that.  Several ks group per k into top-2C
 tables that intersect (group_parts_per_k, the default), or as one merged
 K-wide row (the exact fallback when a per-k table spills).
 
+group_event_parts groups a batch on a card with the hand-written kernel
+G (match/group.py, csrc/group.cu) where group_kernel_takes allows it: one
+launch in place of that chain, equal to it bit for bit.  The chain is
+its plain version (group_event_parts_plain): the CPU's, and the card's
+for rows past G's widest and for the merged K-wide rows.
+
 Once the widths are known, grouping reads nothing to the host and every
 shape in it is static, so pipeline.match_scan replays it from CUDA
 graphs (utils/step_graphs.py); event_size_tensor gives the widths'
@@ -40,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from sketch_rna_tpu_torch.match.expand import row_expand
+from sketch_rna_tpu_torch.match.group import group_kernel_takes, group_rows
 from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, merge_sorted_runs, row_sort_wide
 from sketch_rna_tpu_torch.utils.timing import host_read
 
@@ -458,7 +465,37 @@ def group_event_parts(
     package's _group_tier_parts): one k groups directly; several ks per k
     and intersect (per_k_tables), or as one merged row of packed
     tid*K + k keys, which truncates only the final candidate set.
-    stats always carry candidate_spilled_per_k (0 unless per k)."""
+    stats always carry candidate_spilled_per_k (0 unless per k).
+
+    With the default sort, a batch that group_kernel_takes (on a card, rows
+    of at most 1,024 lanes, one k or per-k tables) groups in one launch of
+    G; any other batch, or another sort (the plain one, to check the
+    kernels), takes group_event_parts_plain.  The two give equal tables
+    and stats."""
+    if sort is row_sort_wide and group_kernel_takes([x.shape[1] for x in parts], per_k_tables, parts[0].device):
+        if num_transcripts >= I32_MAX:
+            raise OverflowError(f"{num_transcripts} transcripts collide with the INT32_MAX event sentinel")
+        C = candidate_capacity
+        caps = [C] if len(parts) == 1 else [min(2 * C, x.shape[1]) for x in parts]
+        p, q = _fraction_compare_params(chain_fraction)
+        tid, score, mask, stats = group_rows(parts, caps, C, (p, q, chain_fraction))
+        return MatchResult(tid=tid, score=score, mask=mask,
+                           stats={"candidate_spilled": stats[0], "candidate_spilled_per_k": stats[1]})
+    return group_event_parts_plain(parts, chain_fraction=chain_fraction, candidate_capacity=candidate_capacity,
+                                   num_transcripts=num_transcripts, per_k_tables=per_k_tables, sort=sort)
+
+
+def group_event_parts_plain(
+    parts: Sequence[torch.Tensor],
+    *,
+    chain_fraction: float,
+    candidate_capacity: int,
+    num_transcripts: int,
+    per_k_tables: bool = True,
+    sort: Sort = row_sort_wide,
+) -> MatchResult:
+    """group_event_parts by the chain of row sorts and PyTorch operations
+    (row_events_to_candidates, group_parts_per_k): G's plain version."""
     K = len(parts)
     kw = dict(
         chain_fraction=chain_fraction,

@@ -11,7 +11,8 @@ src/main.cpp:165-197 in the reference):
     K1/K2, or K3 + K4 for reads past 1024 windows; sketch/dispatch.py),
     probed in each k's bucket table (kernel P, match/bucket_lookup.py),
     expanded into one event row per read and k (kernel E,
-    match/expand.py), and grouped into top-C candidates (kernel K4) —
+    match/expand.py), and grouped into top-C candidates (kernel G, or
+    past its 1,024-lane rows K4 and PyTorch operations) —
     match/rowmatch.py.  match_scan, the JAX engine's counterpart, does
     it with one host read a length group, replaying each batch's steps
     from CUDA graphs on a card (utils/step_graphs.py).  Several ks group
@@ -55,12 +56,14 @@ from sketch_rna_tpu_torch.index.artifact import DeviceIndex, IndexArtifact
 from sketch_rna_tpu_torch.io.packing import PackedReads
 from sketch_rna_tpu_torch.match.bucket_lookup import probe_index
 from sketch_rna_tpu_torch.match.expand import row_expand
+from sketch_rna_tpu_torch.match.group import group_kernel_takes
 from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort_wide
 from sketch_rna_tpu_torch.match.rowmatch import (
     MatchResult,
     Read,
     _read_local,
     event_size_tensor,
+    event_sizes,
     expand_width,
     group_event_parts,
     match_runs,
@@ -103,8 +106,9 @@ class QuantResult:
     width, one a batch slice and k that K3 sketches),
     match.eager_batches (batches whose sketch ran eagerly because their
     length group takes K3) with the span match.eager_sketch (seconds in
-    those groups' phase 1), and em.iterations.  A quant that retries (a
-    streamed wide-block spill) reports the retry alone.
+    those groups' phase 1), match.group_kernel_batches (batches the
+    grouping kernel G grouped whole), and em.iterations.  A quant that
+    retries (a streamed wide-block spill) reports the retry alone.
 
     sizes: the work a fused quant did, counted on the host from the
     shapes the engine already knows (no device sync), the inputs of
@@ -254,6 +258,14 @@ def group_runs(runs: Sequence[Tuple[torch.Tensor, torch.Tensor]], widths: Sequen
     return res
 
 
+def _group_kernel_batch(most: Sequence[int], index: DeviceIndex, config: QuantConfig) -> bool:
+    """Whether the kernel G groups a whole batch whose reads' largest
+    per-k event totals are `most` (the rows of a batch that match_runs
+    slices group slice by slice, and are not counted as such)."""
+    return max(most) <= MAX_WIDTH and group_kernel_takes([expand_width(m) for m in most],
+                                                         config.match_per_k_tables, index.device)
+
+
 def _grouper(index: DeviceIndex, config: QuantConfig, sort: Callable[[torch.Tensor], torch.Tensor] = row_sort_wide):
     """match_runs' group: group_runs at each k's width for its largest
     per-read event total."""
@@ -278,19 +290,24 @@ def sketch_match_step(
     (match_rows with a step); match_scan runs the same functions with one
     host read a length group.
 
-    sketch / sort / lookup: the kernels by default (sketch_reads, K4 and
-    past its widest row the merge kernel, the bucket probe P); their
-    plain versions (sketch_all_k, row_sort_plain,
-    bucket_lookup.probe_index_plain) check them on the same batch.
+    sketch / sort / lookup: the kernels by default (sketch_reads, the
+    grouping kernel G, and where G does not take a batch K4 and past its
+    widest row the merge kernel, the bucket probe P); their plain versions
+    (sketch_all_k, row_sort_plain, which also takes the plain grouping
+    chain, bucket_lookup.probe_index_plain) check them on the same batch.
     lookup(hashes, mask, DeviceKIndex) -> (start, length).
     Stats: sketch_overflow summed over ks, candidate_spilled,
     candidate_spilled_per_k, and expand_dropped, always 0 (the JAX
-    engines' key: the port drops no event).
+    engines' key: the port drops no event).  A batch that the kernel G
+    groups whole counts one match.group_kernel_batches, as in match_scan.
     """
     ks = tuple(index.kmer_lengths)
     sketches = sketch(codes, lengths, ks, config.sketch_fraction, sketch_caps)
     runs = [lookup(h, m, index.per_k[k]) for (h, m, _), k in zip(sketches, ks)]
-    res = match_runs(runs, config.batch_size, _grouper(index, config, sort))
+    sizes = event_sizes([length for _, length in runs])
+    if sort is row_sort_wide and _group_kernel_batch(sizes, index, config):
+        count("match.group_kernel_batches")
+    res = match_runs(runs, config.batch_size, _grouper(index, config, sort), sizes=sizes)
     res.stats["sketch_overflow"] = sum(ov for _, _, ov in sketches)
     res.stats["expand_dropped"] = torch.zeros((), dtype=torch.int64, device=codes.device)
     return res
@@ -506,7 +523,10 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     its graphs' captures; a group that takes K3 adds its batches to
     match.eager_batches and its phase 1's host seconds to the span
     match.eager_sketch (no device sync of its own: K3 syncs each batch).
-    Both are declared, so they read 0 where no group takes K3.
+    Both are declared, so they read 0 where no group takes K3.  Each batch
+    that the kernel G groups whole (group_kernel_takes at its widths; a
+    graph replay never enters G's wrapper) adds one to
+    match.group_kernel_batches, declared too.
     """
     ks = tuple(index.kmer_lengths)
     K = len(ks)
@@ -516,6 +536,7 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     groups: List[_Group] = []
     n_padded = lanes = 0
     count("match.eager_batches", 0)
+    count("match.group_kernel_batches", 0)
     declare("match.eager_sketch")
 
     def sketch_probe(c, n, caps):
@@ -568,6 +589,8 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
                 if sizes is not None:
                     _count_batch(sizes, index, real, l_eff, caps)
                 if max(most) <= MAX_WIDTH:
+                    if _group_kernel_batch(most, index, config):
+                        count("match.group_kernel_batches")
                     widths = tuple(expand_width(m) for m in most)
                     t, st = graphs.run(("group", Bg, caps, widths, fields),
                                        functools.partial(expand_group, rows=Bg, caps=caps, widths=widths), row)

@@ -328,12 +328,14 @@ def counters() -> Dict[str, Tuple[object, str]]:
     from sketch_rna_tpu_torch.match import row_sort
     from sketch_rna_tpu_torch.match.bucket_lookup import bucket_lookup
     from sketch_rna_tpu_torch.match.expand import row_expand
+    from sketch_rna_tpu_torch.match.group import group_rows
 
     return {"K1": (fused_sketch, "launches"), "K2": (fused_sketch_multik, "launches"),
             "K3": (nthash_sketch, "launches"), "K4": (row_sort.row_sort, "launches"),
             "K4-int64": (row_sort.row_sort, "launches_i64"), "merge": (row_sort.merge_pairs, "launches"),
             "merge-partition": (row_sort.merge_partition, "launches"),
-            "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches"), "E": (row_expand, "launches")}
+            "P": (bucket_lookup, "launches"), "S": (segsum_apply, "launches"), "E": (row_expand, "launches"),
+            "G": (group_rows, "launches")}
 
 
 def reset_launches() -> None:

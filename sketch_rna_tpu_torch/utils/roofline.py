@@ -51,6 +51,15 @@ def sort_work(B: int, W: int, itemsize: int):
     return 2 * B * W * itemsize, B * need * (itemsize // 4)
 
 
+def group_work(B: int, widths, C: int):
+    """(bytes, integer operations) of grouping per-k [B, W_k] int32 event
+    rows into [B, C] candidate tables (kernel G): each row read once, the
+    int32 tid and score and the bool mask of every table slot written once,
+    and the ceil(log2 W_k!) comparisons each row's sort needs at least."""
+    need = sum(math.ceil(math.lgamma(W + 1) / math.log(2)) for W in widths)
+    return 4 * B * sum(widths) + 9 * B * C, B * need
+
+
 def sketch_work(B: int, L: int, ks, caps):
     """(bytes, integer operations) of sketching [B, L] reads at ks: codes
     and lengths in, per k a [B, cap] int64 row + bool mask + int32

@@ -20,7 +20,11 @@ route, and the posting-expansion kernel's plain version.
   and its float32 path;
 - the steps match_scan captures on a card read nothing to the host
   (no .item(), .tolist(), bool() or int() of a tensor), here where they
-  run eagerly.
+  run eagerly;
+- which batches the grouping kernel G takes (match/group.py
+  group_kernel_takes), what group_event_parts hands it, and the counter
+  match.group_kernel_batches, one a batch G groups whole (G itself runs
+  on a card only: chip_smoke.py's group phase holds it to the plain chain).
 """
 
 import jax.numpy as jnp
@@ -37,11 +41,13 @@ from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.index.artifact import to_device
 from sketch_rna_tpu_torch.index.build import build_index
 from sketch_rna_tpu_torch.io.fasta import FastaRecords
-from sketch_rna_tpu_torch.match import rowmatch
+from sketch_rna_tpu_torch import pipeline
+from sketch_rna_tpu_torch.match import group, rowmatch
 from sketch_rna_tpu_torch.match.expand import row_expand, row_expand_plain
-from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH
+from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, MIN_WIDTH, row_sort_plain
 from sketch_rna_tpu_torch.pipeline import match_rows, match_scan, sketch_match_step
 from sketch_rna_tpu_torch.utils import step_graphs
+from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
 from util import decode
@@ -364,3 +370,79 @@ def test_expand_bound_counts_the_starts_it_needs(lengths, W, want):
     length = torch.tensor(lengths, dtype=torch.int64)
     B, S = length.shape
     assert expand_work(length, W) == (want, B * S + B * W)
+
+
+@pytest.mark.parametrize("widths,per_k,device,want", [
+    ((128,), True, "cuda", True),
+    ((256, 128), True, "cuda", True),
+    ((1024,), False, "cuda", True),  # one k: the K > 1 mode does not matter
+    ((2, 1024, 4), True, "cuda:0", True),
+    ((2048,), True, "cuda", False),  # past the widest row a warp sorts
+    ((256, 2048), True, "cuda", False),
+    ((256, 256), False, "cuda", False),  # the merged K-wide rows
+    ((128,), True, "cpu", False),  # the plain chain is the CPU's
+    ((64,) * 16, True, "cuda", True),
+    ((64,) * 17, True, "cuda", False),  # past the kernel's ks
+], ids=["k31", "k21_31", "one_k_merged", "three_ks", "wide", "one_wide_k", "merged", "cpu", "16_ks", "17_ks"])
+def test_group_kernel_engagement_rule(widths, per_k, device, want):
+    """Which batches G groups: a pure function of the rows' widths, the
+    number of ks, the K > 1 mode and the device."""
+    assert group.group_kernel_takes(widths, per_k, torch.device(device)) is want
+    assert group.group_kernel_takes(list(widths), per_k, device) is want
+
+
+@pytest.mark.parametrize("K,per_k", [(1, True), (2, True), (3, True), (2, False)],
+                         ids=["one_k", "two_ks", "three_ks", "merged"])
+def test_group_event_parts_hands_the_kernel_its_tables(monkeypatch, K, per_k):
+    """With the rule taken as on a card, group_event_parts hands G the rows,
+    each k's table size (C at one k, min(2C, W_k) at several) and the chain
+    test (p, q, fraction), and returns its tables and stats as the plain
+    chain's; merged rows and another sort take the plain chain."""
+    rng = np.random.default_rng(K)
+    parts = [torch.from_numpy(np.where(rng.random((6, W)) < 0.8, rng.integers(0, 40, (6, W)), I32_MAX).astype(
+        np.int32)) for W in (8, 64, 256)[:K]]
+    kw = dict(chain_fraction=0.9, candidate_capacity=16, num_transcripts=40)
+    handed = []
+
+    def kernel(rows, caps, C, chain):
+        handed.append(([r.shape[1] for r in rows], list(caps), C, chain))
+        res = rowmatch.group_event_parts_plain(list(rows), chain_fraction=chain[2], candidate_capacity=C,
+                                               num_transcripts=40)
+        return res.tid, res.score, res.mask, torch.stack([res.stats["candidate_spilled"],
+                                                          res.stats["candidate_spilled_per_k"]])
+
+    real = group.group_kernel_takes
+    monkeypatch.setattr(rowmatch, "group_kernel_takes", lambda widths, per_k, device: real(widths, per_k, "cuda"))
+    monkeypatch.setattr(rowmatch, "group_rows", kernel)
+    got = rowmatch.group_event_parts(parts, per_k_tables=per_k, **kw)
+    want = rowmatch.group_event_parts_plain(parts, per_k_tables=per_k, **kw)
+    assert all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("tid", "score", "mask"))
+    assert {k: int(v) for k, v in got.stats.items()} == {k: int(v) for k, v in want.stats.items()}
+    widths = [p.shape[1] for p in parts]
+    caps = [16] if K == 1 else [min(32, W) for W in widths]
+    assert handed == ([(widths, caps, 16, (9, 10, 0.9))] if per_k or K == 1 else [])
+    rowmatch.group_event_parts(parts, per_k_tables=per_k, sort=row_sort_plain, **kw)
+    assert len(handed) == (1 if per_k or K == 1 else 0)
+
+
+@pytest.mark.parametrize("ks,per_k", [((31,), True), ((21, 31), True), ((21, 31), False)],
+                         ids=["k31", "k21_31", "k21_31_merged"])
+def test_group_kernel_batches_are_counted_a_batch(problem, monkeypatch, ks, per_k):
+    """match.group_kernel_batches reads 0 in a CPU quant (declared); with
+    the rule taken as on a card, it counts every batch G would group whole,
+    once, in match_scan and in the per-batch route alike, and none at the
+    merged K-wide rows."""
+    indexes, codes, lengths, _ = problem
+    index = indexes[ks][1]
+    cfg = QuantConfig(kmer_lengths=ks, batch_size=B, match_per_k_tables=per_k)
+    with PhaseTimer().opened() as timer:
+        match_scan(index, torch.from_numpy(codes), lengths, cfg)
+    assert timer.counts["match.group_kernel_batches"] == 0
+    real = group.group_kernel_takes
+    monkeypatch.setattr(pipeline, "group_kernel_takes", lambda widths, per_k, device: real(widths, per_k, "cuda"))
+    batches = sum(-(-n // B) for n in _group_sizes(lengths))
+    want = batches if per_k or len(ks) == 1 else 0
+    for step in (None, sketch_match_step):
+        with PhaseTimer().opened() as timer:
+            match_rows(index, torch.from_numpy(codes), lengths, cfg, step=step)
+        assert timer.counts.get("match.group_kernel_batches", 0) == want

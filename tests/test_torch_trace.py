@@ -38,10 +38,11 @@ STAGES = {"fused": {"match", "classes", "em_assign", "quant_fused", "quant_fused
           "streamed": {"stream_match", "classes", "em_assign", "index_upload"},
           "sharded": {"stream_match", "classes", "em_assign"}}
 COUNTERS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes",
-            "match.groups", "match.host_reads", "match.eager_batches", "match.eager_sketch", "em.iterations"}
+            "match.groups", "match.host_reads", "match.eager_batches", "match.eager_sketch",
+            "match.group_kernel_batches", "em.iterations"}
 GRAPHS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes"}
 # What match_scan declares (the fused and streamed engines' match), beside its graphs.
-SCAN = GRAPHS | {"match.eager_batches", "match.eager_sketch"}
+SCAN = GRAPHS | {"match.eager_batches", "match.eager_sketch", "match.group_kernel_batches"}
 
 
 @pytest.fixture(scope="module")
