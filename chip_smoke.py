@@ -106,9 +106,8 @@ without printing its result line:
                 k = (21, 31), float64 EM) on the card against the
                 reference math in NumPy (oracle/): collect_pairs equals
                 oracle_sparse_chain, quantify's CSV rows oracle_quant's,
-                values within 5e-9 relative; the roofline lines of scale
-                and scale-multik (run here if those phases did not); and
-                every problem's graph path (match_rows' default,
+                values within 5e-9 relative; and every problem's graph
+                path (match_rows' default,
                 pipeline.match_scan: one host read a length group, the
                 batch steps replayed from CUDA graphs) equal to its eager
                 per-batch path, tables and stats, with the graphs it
@@ -182,7 +181,7 @@ without printing its result line:
                 device memory, index bytes, bucket tables and their deepest
                 bucket; then 2^20 reads of 150 bp (seed 7, padded to 256) at
                 float64 EM, fused at k = 31 and at ks (21, 31): timed after a
-                warm-up with the roofline line, no lost work, every batch
+                warm-up, no lost work, every batch
                 equal to the global-sort matcher and the graph path equal
                 to the eager per-batch path (the graphs captured a quant,
                 the batches G grouped and its peak memory printed), the
@@ -267,11 +266,8 @@ timed quant (every count set to 0 just before it: P and E must launch
 once a k and batch on scale and scale-multik, P on long-reads and
 stream-c3 and never on the sharded route; a replayed CUDA graph adds
 the launches its capture recorded), checks read-count conservation and
-zero dropped
-work, prints the timed run's roofline (utils/roofline.py, from its
-QuantResult.sizes and stage times; every share of peak at most 1.0) and
-holds the first batch's candidate tables against the plain functions on
-the same tensors.
+zero dropped work, and holds the first batch's candidate tables against
+the plain functions on the same tensors.
 
 Then one JSON line per kernel ({"kernels": [...]}: launches on the main
 path, device ms, plain ms, bound in ms and us with the bytes and
@@ -1433,25 +1429,9 @@ def phase_sample_multik():
     print(f"[sample-multik] -k 21,31 float64 CSV on the card == --device cpu run ({len(a)} rows, max rel diff {rel:.3g})")
 
 
-def _roofline(tag, res, quant_s, config):
-    """The timed quant's roofline (utils/roofline.py) from its sizes and
-    stage times, printed as one JSON line: every size counted, no share of
-    peak above 1.0 (the least work cannot take less than the least time)."""
-    from sketch_rna_tpu_torch.utils.roofline import roofline
-
-    sizes = res.sizes
-    require(len(sizes) == 7 and all(v > 0 for v in sizes.values()), f"{tag}: sizes not all counted: {sizes}")
-    out = roofline(sizes, res.timing, quant_s, res.em_iterations, 8 if config.em_dtype == "float64" else 4)
-    print(f"[{tag}] roofline {json.dumps({'sizes': sizes, 'roofline': out})}")
-    over = {name: stage["share"] for name, stage in out.items() if stage.get("share", 0.0) > 1.0}
-    require(not over and out["summary"]["frac_of_elapsed"] <= 1.0, f"{tag}: a share of peak above 1.0: {over}")
-    return out
-
-
-def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
+def _timed_quant(torch, tag, index, packed, config, n_reads):
     """Warm-up + timed quant; returns (result, seconds, launches of the timed
-    run, its peak device memory in bytes).  Prints the timed run's
-    roofline, kept in ctx["roofline"][tag] when a ctx is given."""
+    run, its peak device memory in bytes)."""
     import numpy as np
 
     from sketch_rna_tpu_torch.pipeline import quantify
@@ -1480,9 +1460,6 @@ def _timed_quant(torch, tag, index, packed, config, n_reads, ctx=None):
     require(res.num_mapped > 0.9 * n_reads, f"only {res.num_mapped} reads mapped")
     require(res.stats["sketch_overflow"] == 0 and res.stats["expand_dropped"] == 0,
             f"dropped work: {res.stats}")
-    line = _roofline(tag, res, quant_s, config)
-    if ctx is not None:
-        ctx.setdefault("roofline", {})[tag] = line
     return res, quant_s, launches, peak
 
 
@@ -1557,7 +1534,7 @@ def phase_scale(torch, results, ctx):
     index, codes, lengths, config = sc["index"], sc["codes"], sc["lengths"], sc["config"]
     n_reads = lengths.size
     packed = PackedReads(codes, lengths, [])
-    _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads, ctx)
+    _, _, launches, _ = _timed_quant(torch, "scale", index, packed, config, n_reads)
     require(launches["K1"] > 0 and launches["G"] > 0, f"the single-k path skipped a kernel: {launches}")
     require(launches["K2"] == launches["K3"] == 0, f"the single-k path ran a multi-k or long-read kernel: {launches}")
     require(launches["P"] == launches["K1"] == launches["E"] == launches["G"],
@@ -1620,7 +1597,7 @@ def phase_scale_multik(torch, results, ctx):
     index, codes, lengths, config = c3["index"], c3["codes"], c3["lengths"], c3["config"]
     ks, n_reads = config.kmer_lengths, lengths.size
     _, _, launches, ctx["fused_peak_bytes"] = _timed_quant(torch, "scale-multik", index,
-                                                           PackedReads(codes, lengths, []), config, n_reads, ctx)
+                                                           PackedReads(codes, lengths, []), config, n_reads)
     # A batch whose per-k tables spill groups again merged (K2, P, E, K4):
     # G launches once a batch that did not.
     require(launches["K2"] > 0 and 0 < launches["G"] <= launches["K2"],
@@ -1845,23 +1822,10 @@ def _crosscheck_oracle(torch):
 def phase_crosscheck(torch, ctx):
     """The card's main path against independent formulations at scale:
     every batch of scale and the c3 problem against the global-sort
-    matcher, ORACLE_PROBLEM against the reference math, and the scale
-    phases' roofline lines (run here if those phases did not run)."""
-    from sketch_rna_tpu_torch.io.packing import PackedReads
-
-    problems = (("scale", scale_problem(torch, ctx)), ("scale-multik", c3_problem(torch, ctx)))
-    for tag, problem in problems:
+    matcher, and ORACLE_PROBLEM against the reference math."""
+    for tag, problem in (("scale", scale_problem(torch, ctx)), ("scale-multik", c3_problem(torch, ctx))):
         _crosscheck_batches(torch, tag, problem)
     _crosscheck_oracle(torch)
-    rooflines = ctx.setdefault("roofline", {})
-    for tag, p in problems:
-        if tag not in rooflines:
-            _timed_quant(torch, tag, p["index"], PackedReads(p["codes"], p["lengths"], []), p["config"],
-                         p["lengths"].size, ctx)
-        summary = rooflines[tag]["summary"]
-        print(f"[crosscheck] {tag} roofline: {summary['dominant_bound']} leads at "
-              f"{summary['frac_of_peak']:.3g} of its peak; the stages' least time is "
-              f"{summary['frac_of_elapsed']:.3g} of the quant's")
 
 
 def phase_fuzz(torch, results, smi):

@@ -1,8 +1,8 @@
 """Write a large FASTQ from the scale-check transcriptome (the PyTorch
 port's counterpart of scripts/make_fastq.py; imports no JAX).
 
-The streamed file-to-CSV run (bench_torch.py --stream32m) needs a real
-multi-gigabyte file, not reads held in memory.  Reads are drawn with
+A streamed file-to-CSV run (scripts/profile_stream_torch.py) needs a
+real multi-gigabyte file, not reads held in memory.  Reads are drawn with
 numpy (sketch_rna_tpu_torch/utils/synth.py sample_reads) a chunk at a
 time, each chunk from seed 1000 + (reads written) % 997 as the JAX
 script seeds its chunks, and framed into FASTQ records with vectorised

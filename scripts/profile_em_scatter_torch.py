@@ -233,7 +233,7 @@ def chained_e_step(tables, T: int, fns, device) -> dict:
 
 
 def main(argv=None) -> int:
-    from bench_torch import SCALE_CACHE, card, resolve_device
+    from common_torch import SCALE_CACHE, card, resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("N", nargs="?", type=int, default=204800)

@@ -41,6 +41,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 
 def _rates(n_reads: int, nbytes: int, seconds: float) -> dict:
@@ -122,7 +123,7 @@ def profile_feed(fastq: str, chunk: int, min_len: int, batch: int, device, uploa
 
 
 def main(argv=None) -> int:
-    from bench_torch import card, resolve_device
+    from common_torch import card, resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("fastq")

@@ -115,7 +115,7 @@ def profile_multik(index, codes, lengths, batch: int, device) -> dict:
 
 
 def main(argv=None) -> int:
-    from bench_torch import SCALE_CACHE, card, resolve_device
+    from common_torch import SCALE_CACHE, card, resolve_device
     from profile_step_torch import PAD_LEN, READ_LEN, SEED, index_on_device
     from sketch_rna_tpu_torch.utils.synth import sample_reads
 

@@ -35,6 +35,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 ROUTES = ("plain", "unfused", "fused")
 SEED = 0  # the reads' numpy seed
@@ -85,7 +86,7 @@ def profile_width(B: int, L: int, ks, device) -> dict:
 
 
 def main(argv=None) -> int:
-    from bench_torch import card, resolve_device
+    from common_torch import card, resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("B", nargs="?", type=int, default=8192)

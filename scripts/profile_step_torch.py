@@ -72,6 +72,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 STAGES = ("sketch", "probe", "expand", "group", "step")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -82,9 +83,9 @@ SEED = 7
 
 def index_on_device(n_transcripts: int, ks, device, cache_dir):
     """(the index of gencode_transcriptome(n_transcripts) at ks on
-    `device`, that transcriptome): bench_torch.cached_index's artifact,
+    `device`, that transcriptome): common_torch.cached_index's artifact,
     from scale_check_torch.py's cache or built and saved there."""
-    from bench_torch import cached_index as cached_artifact
+    from common_torch import cached_index as cached_artifact
     from sketch_rna_tpu_torch.index.artifact import to_device
 
     artifact, seqs, where = cached_artifact(n_transcripts, ks, device, cache_dir)
@@ -352,7 +353,7 @@ def profile_size(n_transcripts: int, ks, args, device, card_info) -> dict:
 
 
 def main(argv=None) -> int:
-    from bench_torch import SCALE_CACHE, card, resolve_device
+    from common_torch import SCALE_CACHE, card, resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--transcripts", default="6000,50000,250000", help="comma list of index sizes")

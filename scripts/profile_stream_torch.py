@@ -41,6 +41,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 
 @contextlib.contextmanager
@@ -149,7 +150,7 @@ def run_resident(index, fastq: str, config, device):
 
 
 def main(argv=None) -> int:
-    from bench_torch import card, resolve_device
+    from common_torch import card, resolve_device
     from sketch_rna_tpu_torch.io import native
     from sketch_rna_tpu_torch.pipeline import write_csv
 

@@ -2,10 +2,10 @@
 scripts/scale_check.py; imports no JAX): a larger transcriptome and read
 count on one GPU.  Builds the index on the device, or loads it from the
 cache (keyed by transcripts and ks), then times one quant after a
-warm-up and reports reads/s, the loss stats, stage seconds and work
-counts.  At 250,000 transcripts a cached index is used only if it equals
-the JAX package's build (bench_torch.load_gencode_index); else it is
-built again.
+warm-up and reports reads/s, the loss stats and stage seconds.  At
+250,000 transcripts a cached index is used only if it equals the JAX
+package's build (common_torch.load_gencode_index); else it is built
+again.
 
     python3 scripts/scale_check_torch.py [--transcripts N] [--reads N]
         [--k 31[,21]] [--read-len L] [--batch-size B] [--streaming]
@@ -15,8 +15,7 @@ The transcriptome is synth_transcriptome(default_rng(2026), N), as in
 the JAX script; reads come from utils/synth.py sample_reads (numpy,
 seed 7), not the JAX script's jax.random draws.  The cache
 (build/bench_torch/scale_cache by default) holds T<N>_k<ks>.npz, which
-bench_torch.py --configs-full reads: run this script with
---transcripts 250000 at --k 31 and at --k 21,31 first.
+the profile_*_torch.py scripts read too.
 """
 
 from __future__ import annotations
@@ -29,10 +28,11 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 
 def main(argv=None) -> int:
-    from bench_torch import SCALE_CACHE, forced_streaming, resolve_device, sync
+    from common_torch import SCALE_CACHE, forced_streaming, resolve_device, sync
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--transcripts", type=int, default=50000)
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
         print(exc, file=sys.stderr)
         return 2
 
-    from bench_torch import cached_index
+    from common_torch import cached_index
     from sketch_rna_tpu_torch import pipeline as pl
     from sketch_rna_tpu_torch.config import QuantConfig
     from sketch_rna_tpu_torch.index.artifact import to_device
@@ -84,8 +84,6 @@ def main(argv=None) -> int:
     print(f"quant: {dt:.2f}s -> {args.reads / dt:,.0f} reads/s | em_iters={result.em_iterations} "
           f"rows={int(result.has_entry.sum())} stats={result.stats} "
           f"timing={ {k: round(v, 3) for k, v in result.timing.items()} }", flush=True)
-    if result.sizes:
-        print(f"sizes={result.sizes}", flush=True)
     return 0
 
 

@@ -66,15 +66,12 @@ class MatchResult:
     score: [B, C] int32 event count (0 on empty lanes).
     mask:  [B, C] bool validity.
     stats: overflow counters as 0-d int64 tensors.
-    lanes: event lanes grouped, B x the summed per-k row widths, a host
-           count (pipeline.group_runs sets it; 0 elsewhere).
     """
 
     tid: torch.Tensor
     score: torch.Tensor
     mask: torch.Tensor
     stats: Dict[str, torch.Tensor]
-    lanes: int = 0
 
 
 def pow2ceil(n: int) -> int:
@@ -183,8 +180,7 @@ def match_runs(
     first = results[0]
     out = MatchResult(*(torch.zeros((B,) + r.shape[1:], dtype=r.dtype, device=r.device)
                         for r in (first.tid, first.score, first.mask)),
-                      stats={key: sum(r.stats[key] for r in results) for key in first.stats},
-                      lanes=sum(r.lanes for r in results))
+                      stats={key: sum(r.stats[key] for r in results) for key in first.stats})
     for rows, r in zip(slices, results):
         idx = torch.tensor(rows, device=r.tid.device)
         out.tid[idx], out.score[idx], out.mask[idx] = r.tid, r.score, r.mask

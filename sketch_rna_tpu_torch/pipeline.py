@@ -69,9 +69,8 @@ from sketch_rna_tpu_torch.match.rowmatch import (
     match_runs,
     pow2ceil,
 )
-from sketch_rna_tpu_torch.sketch.dispatch import fused_groups, sketch_ops, sketch_reads
+from sketch_rna_tpu_torch.sketch.dispatch import fused_groups, sketch_reads
 from sketch_rna_tpu_torch.utils.profiling import maybe_trace
-from sketch_rna_tpu_torch.utils.roofline import probe_shape_bytes
 from sketch_rna_tpu_torch.utils.step_graphs import StepGraphs
 from sketch_rna_tpu_torch.utils.timing import count, declare, host_read, phase, quant_call
 
@@ -91,8 +90,8 @@ STAT_KEYS = LOSS_KEYS + ("candidate_spilled_per_k",)
 
 @dataclasses.dataclass
 class QuantResult:
-    """One quant's result: abundances, counts, CSV membership, stats,
-    stage times and work counts.
+    """One quant's result: abundances, counts, CSV membership, stats
+    and stage times.
 
     timing: the call's span seconds and counters (utils/timing.py): the
     stages match (fused) or stream_match, classes, em_assign, a fused
@@ -109,42 +108,6 @@ class QuantResult:
     those groups' phase 1), match.group_kernel_batches (batches the
     grouping kernel G grouped whole), and em.iterations.  A quant that
     retries (a streamed wide-block spill) reports the retry alone.
-
-    sizes: the work a fused quant did, counted on the host from the
-    shapes the engine already knows (no device sync), the inputs of
-    utils/roofline.py; empty from the streamed and sharded engines, as in
-    the JAX package.  Keys:
-
-      reads_padded  rows the sketch kernels took.  The port pads no batch,
-                    so this is the read count; the JAX engine pads each
-                    length group to whole batches, and the two agree when
-                    batch_size divides every group.
-      hash_windows  k-mer windows hashed: rows x (L - k + 1) a k, L a
-                    group's width (its longest read rounded up to 8), as
-                    the JAX engine counts them.
-      hash_ops      the sketch's integer operations by utils/roofline.py's
-                    rule (sketch/dispatch.py sketch_ops: 8 a code
-                    position, 8 a window).  The JAX package counts k seed
-                    XORs a window, its windowed XOR; the port's kernels
-                    hash a window in O(1) from a prefix, so the two differ.
-      probe_bytes   the most bytes the bucket probe can move at these
-                    shapes (roofline.probe_shape_bytes: every sketch lane
-                    masked in).  The JAX package counts its whole [key |
-                    start | length] row gathered a lane; P reads only a
-                    masked-in lane's key part, so the two differ.
-      group_lanes   event lanes grouped: rows x the per-k row widths, each
-                    k's batch maximum of events a read rounded up to a
-                    power of two (a regrouped batch counts again).  The
-                    JAX engine counts its tier plan's or expansion
-                    budget's lanes, so the two differ.
-      em_lanes      lanes of the EM's tables, summed over the tiers
-                    (em_tables): the class tiers' (past 1024 padded
-                    reads) or the per-read rows'.
-      em_width_max  the widest table's width.
-
-    The JAX package counts each tier at its padded row count, so its
-    em_lanes is at least the port's; em_width_max is the same where the
-    JAX package's narrow tier is not empty.
     """
 
     names: List[str]
@@ -157,7 +120,6 @@ class QuantResult:
     stats: Dict[str, int]
     timing: Dict[str, float] = dataclasses.field(default_factory=dict)
     lengths: Optional[np.ndarray] = None  # [T] true transcript lengths
-    sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def csv_rows(self) -> List[Tuple[str, float, float]]:
         """(name, NumReads, EM_Abundance) of each CSV row, in transcript
@@ -246,7 +208,7 @@ def group_runs(runs: Sequence[Tuple[torch.Tensor, torch.Tensor]], widths: Sequen
     nothing to the host: at fixed widths its shapes are static."""
     ks = tuple(index.kmer_lengths)
     parts = [row_expand(start, length, index.per_k[k].postings, W) for (start, length), k, W in zip(runs, ks, widths)]
-    res = group_event_parts(
+    return group_event_parts(
         parts,
         chain_fraction=config.chain_fraction,
         candidate_capacity=config.candidate_capacity,
@@ -254,8 +216,6 @@ def group_runs(runs: Sequence[Tuple[torch.Tensor, torch.Tensor]], widths: Sequen
         per_k_tables=config.match_per_k_tables,
         sort=sort,
     )
-    res.lanes = sum(key.numel() for key in parts)
-    return res
 
 
 def _group_kernel_batch(most: Sequence[int], index: DeviceIndex, config: QuantConfig) -> bool:
@@ -406,7 +366,7 @@ class _Group:
 
 
 def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig,
-               step: Optional[Callable[..., MatchResult]] = None, sizes: Optional[Dict[str, int]] = None):
+               step: Optional[Callable[..., MatchResult]] = None):
     """Candidate tables of every read, grouped by padded length as the
     JAX engine groups them (length_groups).
 
@@ -423,31 +383,25 @@ def match_rows(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     each group's rows, cut to the group's width, move to the device once.
     lengths: [N] host lengths.  Returns (tid [N', C] int32, score [N', C]
     int32, padded row count of the JAX engine, stats of 0-d tensors); the
-    rows follow the groups, not the input order.  sizes: a dict that
-    receives QuantResult.sizes' match keys (the step's tables must carry
-    `lanes`, as sketch_match_step's do).
+    rows follow the groups, not the input order.
     """
     if step is None:
-        return match_scan(index, codes, lengths, config, sizes=sizes)
+        return match_scan(index, codes, lengths, config)
     B = config.batch_size
     groups: List[_Group] = []
-    n_padded = lanes = 0
-    for n_rows, l_eff, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
+    n_padded = 0
+    for n_rows, _, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
         n_padded += _round_up(n_rows, B)
         inputs = list(zip(group.split(B), group_lengths.split(B)))
         g = _Group.alloc(n_rows, min(B, n_rows), caps, inputs, config.candidate_capacity, index.device)
         groups.append(g)
         for b, (c, n) in enumerate(inputs):
-            res = step(c, n, index, config, caps)
-            g.put(b, res)
-            lanes += res.lanes
-            if sizes is not None:
-                _count_batch(sizes, index, c.shape[0], l_eff, caps)
-    return _match_tables(groups, index, config, step, lanes, n_padded, sizes)
+            g.put(b, step(c, n, index, config, caps))
+    return _match_tables(groups, index, config, step, n_padded)
 
 
 def _match_tables(groups: List[_Group], index: DeviceIndex, config: QuantConfig, regroup: Callable[..., MatchResult],
-                  lanes: int, n_padded: int, sizes: Optional[Dict[str, int]], read: Read = _read_local):
+                  n_padded: int, read: Read = _read_local):
     """The tail both match routes share.  At K > 1 with per-k tables, a
     per-k table that spilled makes its batch's intersection inexact: one
     read of every batch's spill count, and the batches that spilled group
@@ -455,8 +409,7 @@ def _match_tables(groups: List[_Group], index: DeviceIndex, config: QuantConfig,
     give the tables of the JAX engine's whole-run merged rerun; a batch
     keeps its per-k spill count and takes the rerun's candidate_spilled
     (its other stats are the sketch's, the same either way).  Then every
-    group's tables in order, n_padded, and the stats summed on the device;
-    `lanes` (plus the reruns') goes to sizes["group_lanes"]."""
+    group's tables in order, n_padded, and the stats summed on the device."""
     if len(index.kmer_lengths) > 1 and config.match_per_k_tables:
         where = [(g, b) for g in groups for b in range(len(g.inputs))]
         spilled = read(torch.cat([g.stats[:, _SPILLED_PER_K] for g in groups]), len(where))
@@ -468,12 +421,9 @@ def _match_tables(groups: List[_Group], index: DeviceIndex, config: QuantConfig,
             redo = regroup(c, n, index, merged, g.caps)
             g.tables[b, 0, :real], g.tables[b, 1, :real] = redo.tid, redo.score
             g.stats[b, _SPILLED] = redo.stats["candidate_spilled"]
-            lanes += redo.lanes
         if any(spilled):
             log.info("per-k candidate tables spilled in %d of %d batches; regrouped them merged",
                      int(np.count_nonzero(spilled)), len(spilled))
-    if sizes is not None:
-        sizes["group_lanes"] = sizes.get("group_lanes", 0) + lanes
     C = config.candidate_capacity
     tid = torch.cat([g.tables[:, 0].reshape(-1, C)[: g.n_rows] for g in groups])
     score = torch.cat([g.tables[:, 1].reshape(-1, C)[: g.n_rows] for g in groups])
@@ -491,7 +441,7 @@ def _unpack_runs(flat: torch.Tensor, B: int, caps: Sequence[int]) -> List[Tuple[
 
 
 def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, config: QuantConfig, *,
-               sizes: Optional[Dict[str, int]] = None, read: Read = _read_local):
+               read: Read = _read_local):
     """match_rows' default route, the counterpart of the JAX package's
     match_scan (sketch_rna_tpu/pipeline.py, one lax.scan a length group
     with no host round trip between batches).  Per length group:
@@ -514,7 +464,7 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     (K3 reads its kept count to the host).  The per-k spill
     regroup and the tables' assembly are match_rows' (_match_tables, with
     sketch_match_step as the regroup).  Tables, row order, the padded
-    count, stats and sizes equal the per-batch route's (match_rows with
+    count and stats equal the per-batch route's (match_rows with
     sketch_match_step) exactly.
 
     On the open timer (utils/timing.py; a quant call's, or one a tool
@@ -534,7 +484,7 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     # What the captured steps read of the config (batch_size through Bg).
     fields = (config.sketch_fraction, config.chain_fraction, C, config.match_per_k_tables)
     groups: List[_Group] = []
-    n_padded = lanes = 0
+    n_padded = 0
     count("match.eager_batches", 0)
     count("match.group_kernel_batches", 0)
     declare("match.eager_sketch")
@@ -585,9 +535,6 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
             # Phase 2: expand + group at each batch's widths.
             for b, (row, table, stat) in enumerate(zip(runs.unbind(0), g.tables.unbind(0), g.stats.unbind(0))):
                 most = most_all[b * K : (b + 1) * K]
-                real = g.real(b)
-                if sizes is not None:
-                    _count_batch(sizes, index, real, l_eff, caps)
                 if max(most) <= MAX_WIDTH:
                     if _group_kernel_batch(most, index, config):
                         count("match.group_kernel_batches")
@@ -596,29 +543,13 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
                                        functools.partial(expand_group, rows=Bg, caps=caps, widths=widths), row)
                     table.copy_(t)
                     stat.copy_(st)
-                    lanes += real * sum(widths)
                     continue
                 # A read past K4's widest row: row slices, eagerly, over the real reads.
+                real = g.real(b)
                 part = [(start[:real], length[:real]) for start, length in _unpack_runs(row, Bg, caps)]
-                res = with_sketch_stats(match_runs(part, B, _grouper(index, config), read, sizes=list(most)), row)
-                g.put(b, res)
-                lanes += res.lanes
+                g.put(b, with_sketch_stats(match_runs(part, B, _grouper(index, config), read, sizes=list(most)), row))
             del runs
-    return _match_tables(groups, index, config, sketch_match_step, lanes, n_padded, sizes, read)
-
-
-def _count_batch(sizes: Dict[str, int], index: DeviceIndex, rows: int, width: int, caps: Sequence[int]) -> None:
-    """Add one batch of `rows` reads cut to `width` to the sizes' sketch
-    and probe counts (QuantResult.sizes)."""
-    ks = tuple(index.kmer_lengths)
-    add = {
-        "reads_padded": rows,
-        "hash_windows": sum(rows * max(width - k + 1, 0) for k in ks),
-        "hash_ops": sketch_ops(rows, width, ks),
-        "probe_bytes": sum(probe_shape_bytes(rows * cap, index.per_k[k].bucket.mb) for k, cap in zip(ks, caps)),
-    }
-    for key, v in add.items():
-        sizes[key] = sizes.get(key, 0) + v
+    return _match_tables(groups, index, config, sketch_match_step, n_padded, read)
 
 
 def collect_pairs(index: DeviceIndex, packed: PackedReads, config: QuantConfig):
@@ -791,10 +722,9 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
     T = index.num_transcripts
     dev = index.device
 
-    sizes: Dict[str, int] = {}
     with phase("match"):
         tbl_tid, tbl_score, n_padded, stats = match_rows(index, torch.from_numpy(packed.codes), packed.lengths,
-                                                         config, sizes=sizes)
+                                                         config)
         host_stats = dict(zip(stats, host_read(torch.stack(list(stats.values())))))
         for key in LOSS_KEYS:
             if host_stats[key]:
@@ -810,11 +740,8 @@ def _quantify_fused(index: DeviceIndex, packed: PackedReads, config: QuantConfig
         tbl_score = tbl_score[:, :W]
         tables, static_base, static_has = em_tables(tbl_tid, tbl_score, config, num_transcripts=T, n_rows=n_padded)
 
-    sizes["em_lanes"] = sum(t[0].numel() for t in tables)
-    sizes["em_width_max"] = max(t[0].shape[1] for t in tables)
     result = em_assign(tables, static_base, static_has, index, config, num_reads=R, num_mapped=num_mapped,
                        stats=host_stats)
-    result.sizes = sizes
     result.timing["index_upload"] = index.upload_s
     return result
 

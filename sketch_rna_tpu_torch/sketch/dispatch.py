@@ -25,7 +25,6 @@ from sketch_rna_tpu_torch.hash.hash_kernel import nthash_sketch
 from sketch_rna_tpu_torch.hash.sketch_kernel import MAX_KS, MAX_WINDOWS, fused_sketch, fused_sketch_multik, window_pad
 from sketch_rna_tpu_torch.match.row_sort import row_sort_wide
 from sketch_rna_tpu_torch.sketch.fracminhash import dedup_select
-from sketch_rna_tpu_torch.utils.roofline import kept_work, sketch_work
 
 # Bytes of one slice's worst-case kept hashes (every window kept, as at
 # fraction 0.9999): the dedup holds them, their sorted copy and, past
@@ -56,16 +55,6 @@ def fused_groups(L: int, ks: Sequence[int]) -> List[List[int]]:
     last one the rest."""
     fused = [i for i, k in enumerate(ks) if window_pad(L, k) <= MAX_WINDOWS]
     return [fused[i : i + MAX_KS] for i in range(0, len(fused), MAX_KS)]
-
-
-def sketch_ops(B: int, L: int, ks: Sequence[int]) -> int:
-    """Integer operations of sketch_reads on [B, L] reads at ks, by the
-    rules of utils/roofline.py: each fused launch reads the codes once for
-    all its ks (sketch_work), K3 once a k (kept_work)."""
-    groups = fused_groups(L, ks)
-    ops = sum(sketch_work(B, L, [ks[i] for i in g], [0] * len(g))[1] for g in groups)
-    fused = {i for g in groups for i in g}
-    return ops + sum(kept_work(B, L, k, 0)[1] for i, k in enumerate(ks) if i not in fused)
 
 
 def sketch_reads(

@@ -1,18 +1,17 @@
 """Speed-of-light accounting on one NVIDIA H100: the least time a piece
-of work could take, and how near a measured time comes to it
-(sketch_rna_tpu/utils/roofline.py's counterpart, with the H100's peaks).
+of work could take (sketch_rna_tpu/utils/roofline.py's counterpart,
+with the H100's peaks).
 
-One yardstick for every reader: chip_smoke.py's kernel table bounds
-each kernel with `bound` and the `*_work` rules below, and `roofline`
-places a whole quant's stages by the same rules, from the counts a fused
-quant leaves in QuantResult.sizes (pipeline.py) and its stage times.
+chip_smoke.py's kernel table bounds each kernel with `bound` and the
+`*_work` rules below, as PERF.md's kernel table does.  The benchmark's
+own shares of a bound (sketch_kernel_roofline, k3_kernel_roofline) are
+perfbench's readers' (perfbench/metrics/, perfbench/readers.py), read
+from a traced run.
 
 The model counts the bytes a function must move (each input read once,
 each output written once) and the least operations it must do, never
 what a particular kernel happens to do; where that needs the data (the
-rows a probe touches), the per-call `*_work` functions read it, and the
-quant's sizes, counted from shapes alone, give the most those shapes
-allow (see `roofline`).
+rows a probe touches), the per-call `*_work` functions read it.
 
 Peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet; a card
 set to a lower power limit runs below them).
@@ -21,18 +20,12 @@ set to a lower power limit runs below them).
 from __future__ import annotations
 
 import math
-from typing import Dict
 
 # The H100 SXM's published memory rate; its CUDA cores' 32-bit integer
 # rate (132 SMs x 64 lanes x 1.98 GHz boost), which the published table of
 # peaks leaves out.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Published float rates outside the tensor cores (the EM's arithmetic).
-FLOAT32_OPS_PER_S = 67e12
-FLOAT64_OPS_PER_S = 34e12
-PEAK_NOTE = ("shares of one H100 SXM's peaks (3.35 TB/s HBM, 132 x 64 x 1.98 GHz int32 op/s, "
-             "67 / 34 TFLOP/s float32 / float64), against the card's 700 W limit")
 
 
 def bound(nbytes: int, ops: int):
@@ -127,14 +120,6 @@ def expand_work(length, W: int):
     return 8 * B * S + 32 * _sectors8(holds.reshape(-1)) + 4 * B * W + 4 * events, B * S + B * W
 
 
-def probe_shape_bytes(lanes: int, mb: int) -> int:
-    """The most bytes probe_work can count for `lanes` lanes through a
-    table of row width mb, from the shape alone: every lane masked in,
-    its hash (8) read, its mask (1) read, its run (16) written, and its
-    own bucket row's key part (4 * mb) read, no row shared, no run hit."""
-    return lanes * (25 + 4 * mb)
-
-
 def segsum_work(plan, itemsize: int):
     """(bytes, integer operations) of one segmented sum: each value
     (itemsize), perm entry (4) and is_start flag (1) read once; seg_end
@@ -142,83 +127,3 @@ def segsum_work(plan, itemsize: int):
     addition a lane, whatever tree adds them."""
     n_pad, T = plan.perm.numel(), plan.seg_end.numel()
     return n_pad * (itemsize + 5) + T * (5 + itemsize), n_pad
-
-
-def _placed(seconds: float, nbytes: int = 0, ops: int = 0, ops_per_s: float = INT32_OPS_PER_S) -> dict:
-    """Achieved rates and shares of peak of `nbytes` and `ops` done in
-    `seconds`; `share` is the larger share, the stage's bound time over
-    its measured time."""
-    out = {"s": seconds}
-    if nbytes:
-        out.update(bytes=nbytes, gb_per_s=nbytes / seconds / 1e9, frac_hbm_peak=nbytes / seconds / HBM_BYTES_PER_S)
-    if ops:
-        out.update(ops=ops, gops_per_s=ops / seconds / 1e9, frac_ops_peak=ops / seconds / ops_per_s)
-    out["share"] = max(out.get("frac_hbm_peak", 0.0), out.get("frac_ops_peak", 0.0))
-    out["bound_s"] = out["share"] * seconds
-    return out
-
-
-def roofline(
-    sizes: Dict[str, int],
-    timing: Dict[str, float],
-    elapsed_s: float,
-    em_iterations: int,
-    em_dtype_bytes: int = 8,
-) -> Dict[str, dict]:
-    """Each stage's achieved rate and share of one H100's peak.
-
-    sizes / timing: a fused quant's QuantResult.sizes and .timing; the
-    sketch, probe and group stages all run inside timing["match"], the EM
-    in timing["em_assign"] (elapsed_s where a time is missing).
-    elapsed_s: the quant's wall time.  Stages, by the rules of the
-    `*_work` functions:
-
-      sketch  hash_ops integer operations (sketch_work's and kept_work's
-              rule) over the integer rate;
-      probe   probe_bytes (probe_shape_bytes, the most these shapes
-              allow) over the memory rate;
-      group   every event lane read and written once as an int32 key
-              (sort_work's bytes, 8 a lane) over the memory rate; the
-              lanes' row widths are not kept, so no comparisons count;
-      em      each of em_iterations E-steps and the assignment reads
-              every table lane's tid and count (8 bytes) and each row's
-              weight (8 bytes, em_width_max lanes a row at most), and does
-              4 float operations a lane (a product, a sum, a scaling and
-              an accumulation) at the float rate of em_dtype_bytes.
-              With width tiers, em_lanes / em_width_max is a lower bound
-              on the rows, so the bytes stay the least work and a share
-              stays at most what the card could reach.
-
-    A share counts the least work, so it reads at most 1.0 on any card; a
-    larger one is a miscount.  summary: the stage with the largest share,
-    and the stages' bound times summed over elapsed_s: the share of the
-    quant the device's work must take at the least.
-    """
-    out: Dict[str, dict] = {}
-    t_match = timing.get("match") or elapsed_s
-    t_em = timing.get("em_assign") or elapsed_s
-    if sizes.get("hash_ops"):
-        out["sketch"] = _placed(t_match, ops=sizes["hash_ops"])
-    if sizes.get("probe_bytes"):
-        out["probe"] = _placed(t_match, nbytes=sizes["probe_bytes"])
-    if sizes.get("group_lanes"):
-        out["group"] = dict(lanes=sizes["group_lanes"], **_placed(t_match, nbytes=8 * sizes["group_lanes"]))
-    lanes = sizes.get("em_lanes", 0)
-    if lanes and em_iterations:
-        passes = em_iterations + 1
-        rows = -(-lanes // max(sizes.get("em_width_max", 1), 1))
-        peak = FLOAT64_OPS_PER_S if em_dtype_bytes == 8 else FLOAT32_OPS_PER_S
-        out["em"] = dict(lanes=lanes, iterations=em_iterations,
-                         **_placed(t_em, nbytes=passes * (8 * lanes + 8 * rows), ops=passes * 4 * lanes,
-                                   ops_per_s=peak))
-    lead = max(out, key=lambda name: out[name]["share"], default=None)
-    bound_s = sum(stage["bound_s"] for stage in out.values())
-    out["summary"] = {
-        "dominant_bound": lead,
-        "frac_of_peak": out[lead]["share"] if lead else 0.0,
-        "bound_s": bound_s,
-        "elapsed_s": elapsed_s,
-        "frac_of_elapsed": bound_s / elapsed_s if elapsed_s else 0.0,
-        "note": PEAK_NOTE,
-    }
-    return out

@@ -6,8 +6,8 @@ jax.random, so any machine with numpy can make the data.  fastq_records
 and write_fastq frame reads as FASTQ text with vectorised numpy (no
 per-read Python), as scripts/make_fastq.py's frame_fastq_chunk does.
 GENCODE_* name the GENCODE-scale transcriptome of the scale tooling
-(bench_torch.py, scripts/scale_check_torch.py, scripts/make_fastq_torch.py,
-chip_smoke.py's gencode phase) and the index it must give.
+(scripts/scale_check_torch.py, scripts/make_fastq_torch.py, chip_smoke.py's
+gencode phase) and the index it must give.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ GENCODE_TRANSCRIPTS = 250_000
 # (sketch_rna_tpu/index/build.py) on fasta_records of that transcriptome
 # at the default sketch fraction, computed on the CPU with JAX at ks
 # (21, 31); its k = 31 part equals the k = 31 build's.
-# tests/test_torch_bench.py rebuilds them with the JAX package.
+# tests/test_torch_index.py rebuilds them with the JAX package.
 GENCODE_INDEX = {
     21: (8_047_904, 14_679_988, "81365fb815ac1efe871bb22892c3f0067c114ead2b15147c335aaee0b6010c51"),
     31: (8_061_137, 14_545_110, "66fdfbbc379417a6a1e091089d62b65b4ba3f5ed54211c91022c33dc65c86b03"),

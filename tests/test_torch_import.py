@@ -31,7 +31,6 @@ assert {"sketch_rna_tpu_torch.dist.quant_stream", "sketch_rna_tpu_torch.dist.col
         "sketch_rna_tpu_torch.utils.roofline", "sketch_rna_tpu_torch.oracle.fuzz"} <= set(names), names
 sys.argv = ["chip_smoke.py"]
 import chip_smoke
-import bench_torch
 # every kernel wrapper's launch count exists from import on, at 0
 assert all(getattr(obj, attr) == 0 for obj, attr in chip_smoke.counters().values()), chip_smoke.counters()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sketch_rna_tpu", "triton"))
@@ -45,13 +44,13 @@ _PROFILE_SCRIPTS = ("profile_step_torch.py", "profile_multik_torch.py", "profile
                     "profile_sketch_torch.py", "profile_feed_torch.py", "profile_stream_torch.py")
 _SCRIPTS = [os.path.join(_REPO, "scripts", n) for n in ("fuzz_oracle_torch.py", "evaluate_accuracy_torch.py",
                                                         "scale_check_torch.py", "make_fastq_torch.py",
-                                                        *_PROFILE_SCRIPTS)]
+                                                        "common_torch.py", *_PROFILE_SCRIPTS)]
 
 
 def _sources():
-    """Every Python source of the port, chip_smoke.py, bench_torch.py and
-    the port's scripts."""
-    out = [os.path.join(_REPO, "chip_smoke.py"), os.path.join(_REPO, "bench_torch.py")] + _SCRIPTS
+    """Every Python source of the port, chip_smoke.py and the port's
+    scripts."""
+    out = [os.path.join(_REPO, "chip_smoke.py")] + _SCRIPTS
     for root, _, names in os.walk(os.path.join(_REPO, "sketch_rna_tpu_torch")):
         out += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return out
@@ -170,3 +169,40 @@ def test_profile_script_runs_without_jax(script, args, profile_inputs):
                          env=env, capture_output=True, timeout=300, cwd=_REPO)
     assert out.returncode == 0, out.stdout.decode() + out.stderr.decode()
     assert "SCRIPT-CLEAN" in out.stdout.decode()
+
+
+def test_no_card_raises(monkeypatch):
+    """Asked for the card (the scripts' default) where there is none,
+    common_torch.resolve_device raises; it never carries on on the CPU."""
+    import torch
+
+    sys.path.insert(0, os.path.join(_REPO, "scripts"))
+    import common_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ("cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            common_torch.resolve_device(device)
+    assert common_torch.resolve_device("cpu").type == "cpu"
+
+
+# Each script that takes its card from common_torch, run without a card
+# and without --device cpu: it exits 2 and says there is no CUDA device.
+@pytest.mark.parametrize("script,args", [
+    ("scale_check_torch.py", []),
+    ("profile_step_torch.py", ["--transcripts", "30", "--reads", "300", "--batch", "128", "--cache-dir", "{tmp}"]),
+    ("profile_multik_torch.py", ["--transcripts", "30", "--reads", "300", "--batch", "32", "--cache-dir", "{tmp}"]),
+    ("profile_em_scatter_torch.py", ["1000", "8", "200", "--chained"]),
+    ("profile_sketch_torch.py", ["16", "104", "31"]),
+    ("profile_feed_torch.py", ["{tmp}/reads.fq", "--chunk", "128", "--batch", "128"]),
+    ("profile_stream_torch.py", ["{tmp}/T30_k31.npz", "{tmp}/reads.fq", "--chunk-reads", "128", "--resident"]),
+], ids=["scale-check", "step", "multik", "em-scatter", "sketch", "feed", "stream"])
+def test_scripts_without_a_card_exit_nonzero(script, args, request):
+    if "{tmp}" in " ".join(args):
+        tmp = str(request.getfixturevalue("profile_inputs"))
+        args = [a.replace("{tmp}", tmp) for a in args]
+    env = dict(os.environ, PYTHONPATH=_REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, os.path.join("scripts", script), *args], env=env, capture_output=True,
+                         text=True, timeout=300, cwd=_REPO)
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "no CUDA device" in out.stderr and "metric" not in out.stdout

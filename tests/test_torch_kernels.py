@@ -23,7 +23,6 @@ from sketch_rna_tpu_torch.match.row_sort import MAX_WIDTH, row_sort, row_sort_wi
 from sketch_rna_tpu_torch.sketch import dispatch
 from sketch_rna_tpu_torch.sketch.dispatch import sketch_reads
 from sketch_rna_tpu_torch.sketch.fracminhash import SENTINEL, hash_kept, kept_width, sketch_batch
-from sketch_rna_tpu_torch.utils.roofline import kept_work, sketch_work
 
 FRACTION = 0.05
 KS = (21, 31)
@@ -212,16 +211,3 @@ def test_sketch_reads_nine_ks_equals_per_k():
     for (h, m, ov), k, cap in zip(got, ks, caps):
         want = sketch_batch(torch.from_numpy(codes), torch.from_numpy(lengths), k, FRACTION, cap)
         assert torch.equal(h, want[0]) and torch.equal(m, want[1]) and int(ov) == int(want[2])
-
-
-def test_sketch_ops_counts_a_code_read_per_launch():
-    """sketch_ops (QuantResult.sizes' hash_ops) counts each fused launch's
-    code read once: nine ks are the two launches' work (eight ks and
-    one), two ks one's."""
-    ks = (11, 13, 15, 17, 19, 21, 23, 25, 27)
-    def launch(group):
-        return sketch_work(8192, 104, group, [0] * len(group))[1]
-
-    assert dispatch.sketch_ops(8192, 104, ks) == launch(ks[:8]) + launch(ks[8:]) > launch(ks)
-    assert dispatch.sketch_ops(8192, 104, KS) == launch(KS)
-    assert dispatch.sketch_ops(8192, 2000, KS) == sum(kept_work(8192, 2000, k, 0)[1] for k in KS)

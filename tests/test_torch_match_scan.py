@@ -7,7 +7,7 @@ route, and the posting-expansion kernel's plain version.
   two length groups with a ragged last batch each, at k = 31 and
   (21, 31): integer outputs bit-equal;
 - match_scan equals match_rows' per-batch route (sketch_match_step),
-  tables, padded count, every stat and QuantResult.sizes' match keys,
+  tables, padded count and every stat,
   including a batch whose reads pass MAX_WIDTH events (row slices) and
   batches whose per-k tables spill (regrouped merged);
 - through the read hook, one size read a length group, plus the one
@@ -140,14 +140,12 @@ def test_match_scan_equals_jax_match_scan(problem, ks, C):
 
 def _same_as_per_batch(index, codes, lengths, cfg, read=rowmatch._read_local):
     """match_scan against match_rows' per-batch route: equal tables,
-    padded count, stats and sizes; returns match_scan's stats."""
-    got_sizes, want_sizes = {}, {}
-    got = match_scan(index, torch.from_numpy(codes), lengths, cfg, sizes=got_sizes, read=read)
-    want = match_rows(index, torch.from_numpy(codes), lengths, cfg, step=sketch_match_step, sizes=want_sizes)
+    padded count and stats; returns match_scan's stats."""
+    got = match_scan(index, torch.from_numpy(codes), lengths, cfg, read=read)
+    want = match_rows(index, torch.from_numpy(codes), lengths, cfg, step=sketch_match_step)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[2] == want[2]
     assert {k: int(v) for k, v in got[3].items()} == {k: int(v) for k, v in want[3].items()}
-    assert got_sizes == want_sizes and got_sizes["group_lanes"] > 0
     # match_rows' default route is match_scan.
     dflt = match_rows(index, torch.from_numpy(codes), lengths, cfg)
     assert torch.equal(dflt[0], got[0]) and torch.equal(dflt[1], got[1])

@@ -5,8 +5,10 @@ port's build of it (the same source and flags), so a JAX build that
 another process is rewriting in place cannot fail the comparison.  On
 the same plain and gzip FASTQ / FASTA files every array, id and count
 must be equal, and equal to the port's Python parsers; so must the 8-bit
-and 2-bit chunk feeds.  The tests skip,
-with the reason, only when the library cannot be built on this machine.
+and 2-bit chunk feeds.  scripts/make_fastq_torch.py's records read
+back through the Python and native parsers to the reads drawn.  The
+tests skip, with the reason, only when the library cannot be built on
+this machine.
 """
 
 import gzip
@@ -25,9 +27,14 @@ from sketch_rna_tpu_torch.io import native
 from sketch_rna_tpu_torch.io.fasta import load_fasta
 from sketch_rna_tpu_torch.io.fastq import load_fastq_dict
 from sketch_rna_tpu_torch.io.packing import pack_reads, unpack_codes2
+from sketch_rna_tpu_torch.utils import synth
+from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import make_fastq_torch  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -201,3 +208,33 @@ def test_concurrent_first_builds_all_load(tmp_path):
     lines = [out.strip().splitlines()[-1] for out, _ in outs]
     assert lines[0].startswith("True ") and len(set(lines)) == 1, lines
     assert sorted(p.name for p in build.iterdir()) == ["libfastio.so", "libfastio.so.lock"]
+
+
+@pytest.mark.parametrize("parser", ["python", "native"])
+def test_make_fastq_reads_back(parser, tmp_path):
+    """make_fastq_torch's records, chunk by chunk from their seeds, read
+    back through the port's parsers to the codes sample_reads drew,
+    reads shorter than --read-len at their own length."""
+    if parser == "native" and not native.native_available():
+        pytest.skip("the native FASTQ parser did not build")
+    path = str(tmp_path / "reads.fq")
+    n, chunk, n_tx = 3000, 1100, 300
+    assert make_fastq_torch.main([path, "--transcripts", str(n_tx), "--reads", str(n), "--chunk", str(chunk)]) == 0
+    seqs = synth_transcriptome(np.random.default_rng(synth.GENCODE_SEED), n_tx)
+    codes, lengths = [], []
+    for r0 in range(0, n, chunk):
+        c, length = sample_reads(seqs, min(chunk, n - r0), 150, 150, seed=1000 + r0 % 997)
+        codes.append(c)
+        lengths.append(length)
+    codes, lengths = np.concatenate(codes), np.concatenate(lengths)
+    assert (lengths < 150).any()  # the short-read framing is exercised
+    if parser == "python":
+        reads = load_fastq_dict(path)
+        assert list(reads) == [f"r{i:010d}" for i in range(n)]
+        want = ["".join("ACGT"[b] for b in codes[i, : lengths[i]]) for i in range(n)]
+        assert list(reads.values()) == want
+    else:
+        packed, stats = native.pack_fastq_native(path, min_len=1)
+        assert packed.num_reads == n and stats["max_len"] == 150
+        np.testing.assert_array_equal(packed.lengths, lengths)
+        np.testing.assert_array_equal(packed.codes[:, :150], codes)

@@ -5,8 +5,10 @@ Same index, same reads.  Tolerances: float64 within 1e-9 relative
 within 1e-5 relative (float32 accumulation over <= 20 iterations).  The
 CSV row set, the iteration count and the overflow stats must be equal.
 Cases cover the equivalence-class path (>= 1024 padded rows), reads of
-two lengths (two padded-length groups), and the per-read table path
-(fewer than 1024 padded rows, several batches).
+two lengths (two padded-length groups), the per-read table path
+(fewer than 1024 padded rows, several batches), and quantify_samples
+over one index, with the samples given as PackedReads or as callables
+that parse each at its turn.
 """
 
 import os
@@ -19,11 +21,13 @@ from sketch_rna_tpu.index.build import build_index as jax_build_index
 from sketch_rna_tpu.io.fasta import FastaRecords as JaxRecords
 from sketch_rna_tpu.io.packing import PackedReads as JaxPacked
 from sketch_rna_tpu.pipeline import quantify as jax_quantify
+from sketch_rna_tpu.pipeline import quantify_samples as jax_quantify_samples
+from sketch_rna_tpu_torch import pipeline
 from sketch_rna_tpu_torch.cli import main as port_cli
 from sketch_rna_tpu_torch.config import QuantConfig
 from sketch_rna_tpu_torch.index.artifact import to_device
 from sketch_rna_tpu_torch.io.packing import PackedReads
-from sketch_rna_tpu_torch.pipeline import quantify, write_csv
+from sketch_rna_tpu_torch.pipeline import quantify, quantify_samples, write_csv
 from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
@@ -79,6 +83,45 @@ def test_quantify_equals_jax(problem, case, dtype, batch, rtol):
         assert got.stats[key] == ref.stats.get(key, 0)
     assert got.stats["expand_dropped"] == 0
     assert abs(got.weighted_counts.sum() - got.num_mapped) <= 1e-6 * got.num_mapped
+
+
+@pytest.mark.parametrize("deferred", [False, True], ids=["packed", "callables"])
+def test_quantify_samples_equals_jax(problem, deferred, monkeypatch):
+    """Three samples of 2,000 reads over one index: each sample's result
+    equals the JAX package's quantify_samples' (float64, within 1e-9),
+    in the samples' order; a callable is called at its sample's turn,
+    just before that sample's quant."""
+    seqs, idx = problem
+    reads = {f"s{i}": sample_reads(seqs, 2000, 100, 256, seed=20 + i) for i in range(3)}
+    ref = jax_quantify_samples(idx, {name: JaxPacked(c, n, []) for name, (c, n) in reads.items()},
+                               JaxConfig(kmer_lengths=(31,), em_dtype="float64"))
+    events = []
+    real = pipeline.quantify
+
+    def quant(index, packed, config):
+        events.append(("quant", packed.num_reads))
+        return real(index, packed, config)
+
+    def parse(name):
+        def packed():
+            events.append(("parse", name))
+            return PackedReads(*reads[name], [])
+        return packed
+
+    monkeypatch.setattr(pipeline, "quantify", quant)
+    samples = {name: parse(name) if deferred else PackedReads(c, n, []) for name, (c, n) in reads.items()}
+    got = quantify_samples(to_device(idx, "cpu"), samples, QuantConfig(em_dtype="float64"))
+    assert list(got) == list(ref) == list(reads)
+    turns = [[("parse", name), ("quant", 2000)] if deferred else [("quant", 2000)] for name in reads]
+    assert events == [e for turn in turns for e in turn]
+    for name in reads:
+        g, r = got[name], ref[name]
+        assert g.em_iterations == r.em_iterations and g.num_reads == r.num_reads == 2000
+        np.testing.assert_array_equal(g.has_entry, r.has_entry)
+        assert g.has_entry.sum() > 100
+        np.testing.assert_allclose(g.pi, r.pi, rtol=1e-9, atol=0)
+        np.testing.assert_allclose(g.weighted_counts, r.weighted_counts, rtol=1e-9, atol=0)
+    assert not np.array_equal(got["s0"].weighted_counts, got["s1"].weighted_counts)
 
 
 def test_no_reads_writes_header_only_csv(problem, tmp_path):
