@@ -93,9 +93,10 @@ without printing its result line:
   scale-multik  the c3_chr20_multik configuration: 20,000 transcripts
                 (synth_transcriptome, seed 22) + 2,097,152 reads of 100 bp,
                 k=(21, 31), batch 8192, float32 EM; then float64 with the
-                default EM route and twice with --em-segsum on: the two
-                bit-identical, within 1e-9 of the default, S launched
-                once an iteration and twice in the assignment;
+                scatter EM route (--em-segsum off) and twice with
+                --em-segsum on: the two bit-identical, within 1e-9 of the
+                scatter, S launched once an iteration and twice in the
+                assignment;
   crosscheck    the card's main path against formulations it shares no
                 code with past the probe: every batch of scale (123) and
                 of the c3 stand-in (256), as the fused engine forms them,
@@ -186,7 +187,8 @@ without printing its result line:
                 to the eager per-batch path (the graphs captured a quant,
                 the batches G grouped and its peak memory printed), the
                 streamed engine within 1e-9 relative, at k = 31
-                --em-segsum on within 1e-9; the first batch of each
+                --em-segsum on within 1e-9 of --em-segsum off (the
+                scatter); the first batch of each
                 through the kernels and the plain functions (equal tables),
                 K1 (k = 31) and K2 (ks 21, 31) timed there at [8192, 152],
                 E on the k = 31 batch's posting runs (its bound from that
@@ -1625,11 +1627,11 @@ def phase_scale_multik(torch, results, ctx):
 
 
 def phase_segsum_quant(torch, ctx):
-    """The c3 stand-in at float64: the default route (index_add_), then
-    --em-segsum on twice.  The two segsum runs give bit-identical pi and
-    counts, within 1e-9 relative of the default; S launches once an EM
-    iteration and twice in the assignment.  Returns S's launches of one
-    run."""
+    """The c3 stand-in at float64: the scatter route (--em-segsum off,
+    index_add_), then --em-segsum on twice.  The two segsum runs give
+    bit-identical pi and counts, within 1e-9 relative of the scatter; S
+    launches once an EM iteration and twice in the assignment.  Returns
+    S's launches of one run."""
     import dataclasses
 
     import numpy as np
@@ -1641,10 +1643,10 @@ def phase_segsum_quant(torch, ctx):
     packed = PackedReads(c3["codes"], c3["lengths"], [])
     cfg = dataclasses.replace(c3["config"], em_dtype="float64")
     t0 = time.perf_counter()
-    ref = ctx["c3_fused64"] = quantify(c3["index"], packed, cfg)
+    ref = ctx["c3_fused64"] = quantify(c3["index"], packed, dataclasses.replace(cfg, em_segsum="off"))
     torch.cuda.synchronize()
-    print(f"[scale-multik] float64 quant, default EM route: {time.perf_counter() - t0:.3f} s, em_assign "
-          f"{ref.timing['em_assign']:.4f} s")
+    print(f"[scale-multik] float64 quant, the scatter route (--em-segsum off): {time.perf_counter() - t0:.3f} s, "
+          f"em_assign {ref.timing['em_assign']:.4f} s")
     seg = dataclasses.replace(cfg, em_segsum="on")
     runs = []
     for _ in range(2):
@@ -1657,10 +1659,10 @@ def phase_segsum_quant(torch, ctx):
             "two --em-segsum on float64 quants differ")
     rel = max(_rel_diff(a.pi, ref.pi), _rel_diff(a.weighted_counts[ref.has_entry], ref.weighted_counts[ref.has_entry]))
     require(np.array_equal(a.has_entry, ref.has_entry) and a.em_iterations == ref.em_iterations and rel <= 1e-9,
-            f"--em-segsum on differs from the default route by {rel} relative")
+            f"--em-segsum on differs from the scatter route by {rel} relative")
     require(la["S"] == a.em_iterations + 2, f"S launched {la['S']} times in {a.em_iterations} EM iterations")
     print(f"[scale-multik] --em-segsum on, float64, twice: pi and counts bit-identical between the runs, within "
-          f"{rel:.3g} relative of the default route; em_assign {a.timing['em_assign']:.4f} / "
+          f"{rel:.3g} relative of the scatter route; em_assign {a.timing['em_assign']:.4f} / "
           f"{b.timing['em_assign']:.4f} s; S launches {la['S']} ({a.em_iterations} iterations + 2)")
     return la["S"]
 
@@ -2557,6 +2559,7 @@ def phase_cli_stream(torch, ctx):
     import numpy as np
 
     from sketch_rna_tpu_torch.cli import main as cli
+    from sketch_rna_tpu_torch.em.em import em_route_name
     from sketch_rna_tpu_torch.index.artifact import save_index
     from sketch_rna_tpu_torch.io import native
     from sketch_rna_tpu_torch.io.packing import PackedReads
@@ -2588,7 +2591,8 @@ def phase_cli_stream(torch, ctx):
         route = [line for line in err.getvalue().splitlines() if line.startswith("quant route:")]
         print(f"[cli-stream] CLI quant in {secs:.3f} s ({CLI_READS / secs:.1f} reads/s, parse included): {route}")
         require(rc == 0, f"CLI quant failed: {err.getvalue()[-2000:]}")
-        want = f"quant route: streamed, feed: {'native-scan' if has_native else 'python'}, em: scatter"
+        em = em_route_name("auto", "auto", torch.device(DEVICE).type)
+        want = f"quant route: streamed, feed: {'native-scan' if has_native else 'python'}, em: {em}"
         require(route == [want], f"the CLI took another route: {route}, expected {want!r}")
         got = _csv_rows(out)
     ref = quantify_streamed(c3["index"], PackedReads(codes, lengths, []), c3["config"])
@@ -2684,6 +2688,7 @@ def phase_gencode(torch, results, ctx):
 
     from sketch_rna_tpu_torch.cli import main as cli
     from sketch_rna_tpu_torch.config import QuantConfig
+    from sketch_rna_tpu_torch.em.em import em_route_name
     from sketch_rna_tpu_torch.hash.sketch_kernel import fused_sketch, fused_sketch_multik
     from sketch_rna_tpu_torch.index.artifact import save_index
     from sketch_rna_tpu_torch.io import native
@@ -2729,19 +2734,22 @@ def phase_gencode(torch, results, ctx):
         print(f"[{tag}] streamed == fused within {rel:.3g} relative ({int(res.has_entry.sum())} rows, "
               f"{res.em_iterations} EM iterations; streamed {stream_s:.3f} s, {st.stats['stream_classes']} classes)")
         if ks == (31,):
+            scat = quantify(index, packed, dataclasses.replace(config, em_segsum="off"))
             reset_launches()
             seg = quantify(index, packed, dataclasses.replace(config, em_segsum="on"))
             torch.cuda.synchronize()
             seg_launches = read_launches()
             path.update(seg_launches)
-            rel = max(_rel_diff(seg.pi, res.pi), _rel_diff(seg.weighted_counts[res.has_entry],
-                                                           res.weighted_counts[res.has_entry]))
-            require(np.array_equal(seg.has_entry, res.has_entry) and rel <= 1e-9
-                    and seg_launches["S"] == seg.em_iterations + 2,
-                    f"{tag} --em-segsum on: {rel} relative from the default route, S {seg_launches['S']} launches")
-            print(f"[{tag}] --em-segsum on: within {rel:.3g} relative of the default route over {n_tx} "
-                  f"transcripts; em_assign {seg.timing['em_assign']:.4f} s against {res.timing['em_assign']:.4f} s; "
-                  f"S {seg_launches['S']} launches")
+            rel = max(_rel_diff(seg.pi, scat.pi), _rel_diff(seg.weighted_counts[scat.has_entry],
+                                                            scat.weighted_counts[scat.has_entry]))
+            require(np.array_equal(seg.has_entry, scat.has_entry) and seg.em_iterations == scat.em_iterations
+                    and rel <= 1e-9 and seg_launches["S"] == seg.em_iterations + 2,
+                    f"{tag} --em-segsum on: {rel} relative from the scatter route, S {seg_launches['S']} launches")
+            same_default = np.array_equal(seg.pi, res.pi) and np.array_equal(seg.weighted_counts, res.weighted_counts)
+            print(f"[{tag}] --em-segsum on: within {rel:.3g} relative of the scatter route (--em-segsum off) over "
+                  f"{n_tx} transcripts; em_assign {seg.timing['em_assign']:.4f} s against the scatter's "
+                  f"{scat.timing['em_assign']:.4f} s; S {seg_launches['S']} launches; bit-equal to the default "
+                  f"route: {same_default}")
         # The first batch as the path forms it (256-padded rows cut to the
         # longest read rounded up to 8) through the kernels and the plain
         # functions, then K1 (k = 31) or K2 (ks 21, 31) held to its plain
@@ -2798,7 +2806,8 @@ def phase_gencode(torch, results, ctx):
         print(f"[gencode] CLI quant of {GENCODE_FILE_READS} reads in {secs:.3f} s ({GENCODE_FILE_READS / secs:.1f} "
               f"reads/s; index load, parse and CSV included): {route}; launches {json.dumps(cli_launches)}")
         require(rc == 0, f"gencode CLI quant failed: {err.getvalue()[-2000:]}")
-        want = "quant route: streamed, feed: native-lazy, em: scatter"
+        em = em_route_name("auto", "auto", torch.device(DEVICE).type)
+        want = f"quant route: streamed, feed: native-lazy, em: {em}"
         require(route == [want], f"the CLI took another route: {route}, expected {want!r}")
         got = _csv_rows(out)
     t0 = time.perf_counter()

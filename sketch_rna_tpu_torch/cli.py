@@ -128,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "route (said on stderr) and, as in the JAX package, turns --em-segsum off")
     p.add_argument("--em-segsum", choices=["auto", "on", "off"], default=d.em_segsum,
                    help="sum the EM's posteriors by a segmented sum over transcript-sorted lanes (kernel S), "
-                   "bit-identical run to run, instead of index_add_ (auto: index_add_)")
+                   "bit-identical run to run, instead of index_add_ (auto: S on a card, index_add_ on the CPU)")
     p.add_argument("--no-native", action="store_true", help="disable the native (C++) FASTQ parser")
     p.add_argument("--tpm", action="store_true",
                    help="append a TPM column (length-normalized; the reference promises TPM but never "
@@ -257,13 +257,15 @@ def _load_reads_slice(reads_path: str, k: int, config: QuantConfig, mesh):
     return packed
 
 
-def _report_route(route: str, feed: str, config: QuantConfig) -> None:
+def _report_route(route: str, feed: str, config: QuantConfig, device) -> None:
+    """The route line on stderr; its EM route is em_route's for tables on
+    `device` (segsum on a card unless --em-segsum off or --em-mxu on)."""
     from sketch_rna_tpu_torch.em.em import em_route_name
 
     if config.em_mxu == "on":
         print("--em-mxu on: the port has no one-hot E-step; the EM takes the scatter route", file=sys.stderr)
-    print(f"quant route: {route}, feed: {feed}, em: {em_route_name(config.em_mxu, config.em_segsum)}",
-          file=sys.stderr)
+    em = em_route_name(config.em_mxu, config.em_segsum, torch.device(device).type)
+    print(f"quant route: {route}, feed: {feed}, em: {em}", file=sys.stderr)
 
 
 def _quant_one(artifact, device, reads_path: str, config: QuantConfig, use_native: bool):
@@ -301,10 +303,11 @@ def _quant_one(artifact, device, reads_path: str, config: QuantConfig, use_nativ
         packed, feed_name = _load_reads(reads_path, max_k, config, False)
     print("Loading read completed")
     if feed is None:
-        _report_route("streamed" if pipeline.streams(packed.num_reads, config) else "fused", feed_name, config)
+        _report_route("streamed" if pipeline.streams(packed.num_reads, config) else "fused", feed_name, config,
+                      device)
         return pipeline.quantify(index, packed, config)
 
-    _report_route("streamed", feed_name, config)
+    _report_route("streamed", feed_name, config, device)
     try:
         # A lazy feed's read count would join its scan here; the engine
         # reads it from the feed once the first chunk is due.
@@ -389,7 +392,7 @@ def run_quant_sharded(
         else:
             packed, feed = _load_reads(fq, max_k, config, use_native)
         if primary:
-            _report_route(f"sharded ({mesh.describe()})", feed, config)
+            _report_route(f"sharded ({mesh.describe()})", feed, config, mesh.device)
         return packed
 
     # Each sample is parsed and packed only at its turn.
@@ -431,7 +434,7 @@ def run_quant(
 
         def load(fq=fq):
             packed, feed = _load_reads(fq, max(idx.kmer_lengths), config, use_native)
-            _report_route("streamed" if streams(packed.num_reads, config) else "fused", feed, config)
+            _report_route("streamed" if streams(packed.num_reads, config) else "fused", feed, config, device)
             return packed
 
         samples[os.path.splitext(os.path.basename(fq))[0]] = load

@@ -51,7 +51,8 @@ class QuantConfig:
     match_per_k_tables: bool = True
     # EM routes (em/em.py em_route), "auto" | "on" | "off" as in the JAX
     # package.  em_segsum: the deterministic segmented sum over a plan of
-    # transcript-sorted lanes instead of index_add_ ("auto" = scatter).
+    # transcript-sorted lanes instead of index_add_ ("auto": segsum on a
+    # card, the scatter on the CPU).
     # em_mxu: the JAX package's one-hot E-step, which the port does not
     # have: "on" takes the scatter route and, as there, turns segsum off.
     em_mxu: str = "auto"

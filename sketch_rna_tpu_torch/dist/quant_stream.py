@@ -40,10 +40,10 @@ What keeps the ranks in step:
     cannot wait on another.  Within a data group every rank reads the
     same all-reduced pi and stops on the same iteration.  On a card the
     index_add_ atomics of two columns may differ in the last place (the
-    default EM route; --em-segsum on sums in a fixed order), so the
-    result of column 0 is handed to its index-group peers at the end (an
-    all-reduce SUM with zeros from the others): every rank returns the
-    same QuantResult.
+    scatter route, --em-segsum off; segsum, a card's default, sums in a
+    fixed order), so the result of column 0 is handed to its index-group
+    peers at the end (an all-reduce SUM with zeros from the others):
+    every rank returns the same QuantResult.
 
 Each rank tiers its own classes as the fused engine does
 (em/classes.py tier_partition), the pair tier included: the JAX sharded

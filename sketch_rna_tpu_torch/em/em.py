@@ -22,16 +22,27 @@ iteration counts em.iterations on the quant call's timer (utils/timing.py).
 
 Two routes for the per-transcript sums (em_route):
 
-  scatter  (the default) `index_add_`; on CUDA its atomics add in a
-           varying order, so float64 results may move in the last ulp
-           between runs;
+  scatter  `index_add_`; on CUDA its atomics add in a varying order, so
+           float64 results may move in the last ulp between runs;
   segsum   (use_segsum) the lanes sorted by transcript once (a plan,
            em/segsum.py, shared by the loop and the assignment), each sum
            a segmented sum in a fixed order: bit-identical run to run.
+           Each sum counts em.segsum_sums on the quant call's timer.
 
-The JAX package has a third, the one-hot E-step (em_mxu), which it takes
-by itself only on a TPU.  The port has none: em_mxu "on" takes the
-scatter route, which is faster on a GPU.
+Both routes compute the posteriors on the tables' lanes in one flat
+order (table by table, row-major; _lanes), a few whole-lane operations
+an iteration whatever the number of tables: the loop is bound by the
+host's dispatch on a card.
+
+em_segsum "auto" decides by the tables' device: segsum on CUDA, where
+the kernel S sums GENCODE-width tiers ~37x faster than index_add_ on an
+H100 (index_add_'s atomics queue on transcript 0, which every padding
+lane of the tiers carries), and the scatter on the CPU, where segsum is
+the slow plain version and the JAX package's choice off a TPU stays
+mirrored.  The JAX package has a third route, the one-hot E-step
+(em_mxu), which it takes by itself only on a TPU.  The port has none:
+em_mxu "on" takes the scatter route, with segsum off, as the JAX package
+turns it off.
 
 With a `group` (a mesh's data group, dist/mesh.py) the tables are this
 rank's share of the reads: each iteration all-reduces the posterior sums
@@ -44,7 +55,8 @@ same all-reduced pi, so all stop on the same iteration.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import itertools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,27 +68,61 @@ from sketch_rna_tpu_torch.utils.timing import count
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def em_route_name(em_mxu: str, em_segsum: str) -> str:
+def em_route_name(em_mxu: str, em_segsum: str, device_type: str = "cpu") -> str:
     """"scatter" or "segsum": the route of config.em_mxu / em_segsum ("auto"
-    | "on" | "off").  As in the JAX package off a TPU, segsum only when
-    asked for and never beside the one-hot step; that step itself is the
-    scatter here."""
-    return "segsum" if em_segsum == "on" and em_mxu != "on" else "scatter"
+    | "on" | "off") for tables on a device of device_type.  Never segsum
+    beside the one-hot step, which is the scatter here; "auto" is segsum
+    on CUDA alone (module docstring), so on the CPU the route is the JAX
+    package's off a TPU: segsum only when asked for."""
+    if em_mxu == "on" or em_segsum == "off":
+        return "scatter"
+    return "segsum" if em_segsum == "on" or device_type == "cuda" else "scatter"
 
 
 def em_route(tables: Sequence[Table], num_transcripts: int, config) -> dict:
     """run_em_tables' and assign_reads_tables' route keywords for these
     tables and a QuantConfig: use_segsum and, with it, the plan built once
     for the loop, every checkpoint segment and the assignment."""
-    use_segsum = em_route_name(config.em_mxu, config.em_segsum) == "segsum"
+    device_type = tables[0][0].device.type
+    use_segsum = em_route_name(config.em_mxu, config.em_segsum, device_type) == "segsum"
     plan = plan_from_tables(tables, num_transcripts) if use_segsum else None
     return dict(use_segsum=use_segsum, segsum_plan=plan)
 
 
-def _unpack(table: Table, dt: torch.dtype):
-    tid, score, weight = table
-    wgt = None if weight is None else weight.to(dt)[:, None]
-    return tid.long(), score.to(dt), wgt
+class _Lanes(NamedTuple):
+    """The tables' lanes in one flat order (table by table, row-major):
+    the order both routes sum in, and the plan's."""
+
+    tid: torch.Tensor  # [n] int64
+    score: torch.Tensor  # [n] of the EM's dtype
+    weight: Optional[torch.Tensor]  # [n] the lane's row multiplicity (1 in a table without); None: no table has one
+    row: torch.Tensor  # [n] int64: the lane's row among all tables' rows
+    shapes: Tuple[Tuple[int, int], ...]  # each table's (rows, width)
+
+
+def _lanes(tables: Sequence[Table], dt: torch.dtype) -> _Lanes:
+    """The tables' lanes, once a call: the loop's iterations share them."""
+    dev = tables[0][0].device
+    shapes = tuple((int(t[0].shape[0]), int(t[0].shape[1])) for t in tables)
+    starts = itertools.accumulate((n for n, _ in shapes), initial=0)
+    row = torch.cat([torch.arange(n * k, device=dev) // max(k, 1) + r0 for (n, k), r0 in zip(shapes, starts)])
+    weight = None
+    if any(t[2] is not None for t in tables):
+        weight = torch.cat([(torch.ones(n, dtype=dt, device=dev) if t[2] is None else t[2].to(dt))[:, None]
+                            .expand(n, k).reshape(-1) for t, (n, k) in zip(tables, shapes)])
+    return _Lanes(torch.cat([t[0].reshape(-1) for t in tables]).long(),
+                  torch.cat([t[1].reshape(-1) for t in tables]).to(dt), weight, row, shapes)
+
+
+def _row_sums(lanes: _Lanes, w: torch.Tensor) -> torch.Tensor:
+    """[rows] sum of each row's lanes of w [n]: each table's [rows, width]
+    view summed along its rows, as the table itself would be."""
+    out = w.new_empty(sum(n for n, _ in lanes.shapes))
+    lane = row = 0
+    for n, k in lanes.shapes:
+        torch.sum(w[lane : lane + n * k].view(n, k), dim=1, out=out[row : row + n])
+        lane, row = lane + n * k, row + n
+    return out
 
 
 def _plan(tables, T: int, use_segsum: bool, plan: Optional[SegsumPlan]) -> Optional[SegsumPlan]:
@@ -113,8 +159,8 @@ def run_em_tables(
     """
     T = num_transcripts
     dt = _DTYPES[dtype]
-    prepped = [_unpack(table, dt) for table in tables]
-    dev = prepped[0][0].device
+    lanes = _lanes(tables, dt)
+    dev = lanes.tid.device
     base = None if static_base is None else static_base.to(dt)
     plan = _plan(tables, T, use_segsum, segsum_plan)
     if init_pi is None:
@@ -132,19 +178,16 @@ def run_em_tables(
     converged = False
     while iterations < max_iterations and not converged:
         ps = torch.zeros(T, dtype=dt, device=dev) if base is None else base.clone()
-        flats = []
-        for tid, sc, wgt in prepped:
-            w = pi[tid] * sc
-            denom = w.sum(dim=1, keepdim=True)
-            post = w * torch.where(denom > eps, 1.0 / denom, 0.0)
-            if wgt is not None:
-                post = post * wgt
-            if plan is not None:
-                flats.append(post.reshape(-1))
-            else:
-                ps.index_add_(0, tid.reshape(-1), post.reshape(-1))
+        w = pi[lanes.tid] * lanes.score
+        denom = _row_sums(lanes, w)
+        post = w * torch.where(denom > eps, 1.0 / denom, 0.0)[lanes.row]
+        if lanes.weight is not None:
+            post = post * lanes.weight
         if plan is not None:
-            ps = ps + segsum_apply(plan, torch.cat(flats))
+            ps = ps + segsum_apply(plan, post)
+            count("em.segsum_sums")
+        else:
+            ps.index_add_(0, lanes.tid, post)
         ps = all_reduce_sum(ps, group)
         new_pi = (ps + term_div) + term_pc
         change = (new_pi - pi).abs().sum()
@@ -179,35 +222,28 @@ def assign_reads_tables(
     dt = _DTYPES[dtype]
     dev = pi.device
     plan = _plan(tables, T, use_segsum, segsum_plan)
-    # The scatter route adds into the folded base; segsum adds it after
-    # its sums, as the JAX package does.
-    weighted = torch.zeros(T, dtype=dt, device=dev)
-    has = torch.zeros(T, dtype=torch.int64, device=dev)
-    if plan is None and static_base is not None:
-        weighted = static_base.to(dt, copy=True)
-    if plan is None and static_has is not None:
-        has = static_has.to(torch.int64, copy=True)
-    prob_flats, contrib_flats = [], []
-    for table in tables:
-        tid, sc, wgt = _unpack(table, dt)
-        w = pi[tid] * sc
-        denom = w.sum(dim=1, keepdim=True)
-        ok = denom > 0
-        prob = w * torch.where(ok, 1.0 / torch.where(ok, denom, 1.0), 0.0)
-        contributes = (sc > 0) & ok
-        if wgt is not None:
-            prob = prob * wgt
-            contributes = contributes & (wgt > 0)
-        flat_tid = tid.reshape(-1)
-        if plan is not None:
-            prob_flats.append(prob.reshape(-1))
-            contrib_flats.append(contributes.reshape(-1).to(torch.int32))
-        else:
-            weighted.index_add_(0, flat_tid, prob.reshape(-1))
-            has.index_add_(0, flat_tid, contributes.reshape(-1).long())
-    if plan is not None:
-        weighted = segsum_apply(plan, torch.cat(prob_flats))
-        has = segsum_apply(plan, torch.cat(contrib_flats)).long()
+    lanes = _lanes(tables, dt)
+    w = pi[lanes.tid] * lanes.score
+    denom = _row_sums(lanes, w)
+    ok = denom > 0
+    prob = w * torch.where(ok, 1.0 / torch.where(ok, denom, 1.0), 0.0)[lanes.row]
+    contributes = (lanes.score > 0) & ok[lanes.row]
+    if lanes.weight is not None:
+        prob = prob * lanes.weight
+        contributes = contributes & (lanes.weight > 0)
+    if plan is None:
+        # The scatter adds into the folded base; segsum adds it after its
+        # sums, as the JAX package does.
+        weighted = torch.zeros(T, dtype=dt, device=dev) if static_base is None else static_base.to(dt, copy=True)
+        has = torch.zeros(T, dtype=torch.int64, device=dev)
+        if static_has is not None:
+            has = static_has.to(torch.int64, copy=True)
+        weighted.index_add_(0, lanes.tid, prob)
+        has.index_add_(0, lanes.tid, contributes.long())
+    else:
+        weighted = segsum_apply(plan, prob)
+        has = segsum_apply(plan, contributes.to(torch.int32)).long()
+        count("em.segsum_sums", 2)
         if static_base is not None:
             weighted = weighted + static_base.to(dt)
         if static_has is not None:

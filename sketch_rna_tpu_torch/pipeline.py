@@ -645,11 +645,13 @@ def em_assign(tables, static_base, static_has, index: DeviceIndex, config: Quant
               num_mapped: int, stats: Dict[str, int], group=None) -> QuantResult:
     """EM (with checkpoints) + soft assignment over weighted tables, the
     span em_assign; the QuantResult of every engine.  The route
-    (em/em.py em_route) is resolved once, and a segsum plan
-    built once, over this process's tables.  group: the data group whose
-    ranks each hold a share of the classes (em/em.py); num_reads and
-    num_mapped are then the global counts."""
+    (em/em.py em_route: segsum on a card by default) is resolved once,
+    and a segsum plan built once, over this process's tables; the
+    counter em.segsum_sums starts at 0, so the scatter route reads 0.
+    group: the data group whose ranks each hold a share of the classes
+    (em/em.py); num_reads and num_mapped are then the global counts."""
     with phase("em_assign"):
+        count("em.segsum_sums", 0)
         names = index.names
         T = len(names)
         route = em_route(tables, T, config)

@@ -165,6 +165,30 @@ def test_cli_segsum_engines_equal_fused(files, tmp_path, monkeypatch, capsys, en
     _assert_csv_close(out, fused)
 
 
+@pytest.mark.parametrize("engine", ["fused", "sharded"])
+@pytest.mark.parametrize("flags", [[], ["--em-segsum", "on"], ["--em-segsum", "off"]])
+def test_cli_route_line_names_the_route_taken(files, tmp_path, monkeypatch, capsys, engine, flags):
+    """The route line's EM route is the one em_route takes for the quant's
+    tables (on the CPU: segsum only with --em-segsum on)."""
+    _, _, idx, fqs, _, _ = files
+    taken = []
+    real = port_pipeline.em_route
+
+    def em_route(tables, num_transcripts, config):
+        route = real(tables, num_transcripts, config)
+        taken.append("segsum" if route["use_segsum"] else "scatter")
+        return route
+
+    monkeypatch.setattr(port_pipeline, "em_route", em_route)
+    capsys.readouterr()
+    extra = ["--sharded"] if engine == "sharded" else []
+    assert port_cli(["-o", "quant", "--device", "cpu", "--no-native", *flags, *extra, idx, fqs[0],
+                     str(tmp_path / "o.csv")]) == 0
+    route = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("quant route:")]
+    assert len(taken) == 1 and route == [route[0].rsplit(", em: ", 1)[0] + f", em: {taken[0]}"]
+    assert taken[0] == ("segsum" if flags == ["--em-segsum", "on"] else "scatter")
+
+
 def test_multi_sample_tpm_equals_jax_cli(files, tmp_path):
     _, _, idx, fqs, _, _ = files
     reads = ",".join(fqs)

@@ -5,6 +5,10 @@ package's decisions.
     resolve_em_segsum pick on a machine without a TPU, with the one-hot
     step, which the port does not have, read as the scatter route;
   - em_route plans a segmented sum exactly when that route is segsum;
+  - em_segsum "auto" takes the route by the tables' device: segsum on
+    CUDA, the scatter on the CPU; "off" and --em-mxu on keep the scatter,
+    "on" keeps segsum; the CLI's route line names the route em_route
+    takes on that device;
   - --em-mxu on (with or without --em-segsum on) runs the scatter route
     bit for bit.
 """
@@ -16,7 +20,9 @@ import pytest
 import torch
 
 from sketch_rna_tpu.em import em as jax_em
+from sketch_rna_tpu_torch import cli
 from sketch_rna_tpu_torch.config import QuantConfig
+from sketch_rna_tpu_torch.em import em as port_em
 from sketch_rna_tpu_torch.em.em import assign_reads_tables, em_route, em_route_name, run_em_tables
 from sketch_rna_tpu_torch.em.segsum import plan_from_tables
 
@@ -42,6 +48,42 @@ def test_route_name_mirrors_jax(mxu, segsum, shape, dtype):
     use_mxu = jax_em.resolve_em_mxu(mxu, T, lanes, dtype)
     want = "segsum" if jax_em.resolve_em_segsum(segsum, dtype, use_mxu, lanes, T) else "scatter"
     assert em_route_name(mxu, segsum) == want
+
+
+def _expected_route(mxu, segsum, device_type):
+    """--em-mxu on -> scatter; --em-segsum off -> scatter, on -> segsum;
+    auto -> segsum on CUDA, the scatter (the JAX package's choice) on the
+    CPU."""
+    if mxu == "on" or segsum == "off":
+        return "scatter"
+    if segsum == "on":
+        return "segsum"
+    return {"cuda": "segsum", "cpu": "scatter"}[device_type]
+
+
+class _CardLanes:
+    """A stand-in for a table's tid tensor on a card: em_route reads the
+    device alone before it plans."""
+
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("mxu,segsum,device_type", list(itertools.product(MODES, MODES, ["cpu", "cuda"])))
+def test_route_follows_the_tables_device(monkeypatch, capsys, mxu, segsum, device_type):
+    T = 300
+    config = QuantConfig(em_mxu=mxu, em_segsum=segsum)
+    if device_type == "cuda":
+        monkeypatch.setattr(port_em, "plan_from_tables", lambda tables, T: "plan")
+        tables = [(_CardLanes(), None, None)]
+    else:
+        tables = _tables(np.random.default_rng(7), T)
+    want = _expected_route(mxu, segsum, device_type)
+    route = em_route(tables, T, config)
+    assert route["use_segsum"] == (want == "segsum") == (route["segsum_plan"] is not None)
+    assert em_route_name(mxu, segsum, device_type) == want
+    cli._report_route("fused", "python", config, torch.device(device_type))
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("quant route:")]
+    assert lines == [f"quant route: fused, feed: python, em: {want}"]
 
 
 @pytest.mark.parametrize("mxu,segsum", list(itertools.product(MODES, MODES)))

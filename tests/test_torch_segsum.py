@@ -268,6 +268,60 @@ def test_em_segsum_equals_jax(weighted, with_base):
     np.testing.assert_allclose(pi.numpy(), pi_s.numpy(), rtol=1e-12, atol=0)
 
 
+def _per_table(tables, pi, T, dt, plan):
+    """One EM iteration's posterior sums and the assignment, table by table
+    (each table's [rows, width] posteriors, then the tables' lanes summed
+    in flat order): what run_em_tables and assign_reads_tables compute
+    over the tables' flat lanes."""
+    posts, probs, contribs = [], [], []
+    for tid, sc, wgt in tables:
+        w = pi[tid.long()] * sc.to(dt)
+        denom = w.sum(dim=1, keepdim=True)
+        post = w * torch.where(denom > 1e-10, 1.0 / denom, 0.0)
+        ok = denom > 0
+        prob = w * torch.where(ok, 1.0 / torch.where(ok, denom, 1.0), 0.0)
+        contributes = (sc > 0) & ok
+        if wgt is not None:
+            post, prob = post * wgt.to(dt)[:, None], prob * wgt.to(dt)[:, None]
+            contributes = contributes & (wgt.to(dt)[:, None] > 0)
+        posts.append(post.reshape(-1))
+        probs.append(prob.reshape(-1))
+        contribs.append(contributes.reshape(-1))
+    flat = torch.cat([t[0].reshape(-1) for t in tables]).long()
+    post, prob, contributes = torch.cat(posts), torch.cat(probs), torch.cat(contribs)
+    if plan is None:
+        return tuple(torch.zeros(T, dtype=v.dtype).index_add_(0, flat, v)
+                     for v in (post, prob, contributes.long()))
+    return segsum_apply(plan, post), segsum_apply(plan, prob), segsum_apply(plan, contributes.to(torch.int32)).long()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("use_segsum", [False, True])
+def test_flat_lanes_keep_the_per_table_sums(dtype, use_segsum):
+    """Both routes compute the tables' posteriors on their flat lanes; the
+    bits equal the table-by-table arithmetic, over weighted and unweighted
+    tables, a table of no rows and one of width 1."""
+    rng = np.random.default_rng(13)
+    T = 300
+    tables = [tuple(torch.from_numpy(a) for a in t) for t in _tables(rng, T)]
+    tables[1] = (tables[1][0], tables[1][1], None)
+    tables += [(torch.zeros((0, 4), dtype=torch.int32), torch.zeros((0, 4), dtype=torch.int32),
+                torch.zeros(0, dtype=torch.int32)),
+               (torch.from_numpy(rng.integers(0, T, (33, 1)).astype(np.int32)),
+                torch.from_numpy(rng.integers(0, 3, (33, 1)).astype(np.int32)),
+                torch.from_numpy(rng.integers(0, 4, 33).astype(np.int32)))]
+    dt = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    plan = plan_from_tables(tables, T) if use_segsum else None
+    pi0 = torch.from_numpy(rng.random(T)).to(dt)
+    # pseudocount 0: one iteration's pi is the posterior sum itself
+    pi, _, _ = run_em_tables(tables, 500, num_transcripts=T, dtype=dtype, pseudocount=0.0, init_pi=pi0,
+                             max_iterations=1, use_segsum=use_segsum, segsum_plan=plan)
+    weighted, has = assign_reads_tables(tables, pi0, num_transcripts=T, dtype=dtype, use_segsum=use_segsum,
+                                        segsum_plan=plan)
+    want_pi, want_w, want_has = _per_table(tables, pi0, T, dt, plan)
+    assert torch.equal(pi, want_pi) and torch.equal(weighted, want_w) and torch.equal(has, want_has > 0)
+
+
 def test_checkpointed_em_builds_one_plan(monkeypatch, tmp_path):
     """The segsum route's plan is built once per quant and shared by every
     checkpoint segment and the assignment; segments resume exactly."""

@@ -9,8 +9,9 @@
     records (never user annotations), the whole call opens none, and the
     torch operations beneath stay top-level by the benchmark's rule; with
     no profiler no record is opened;
-  - match.groups, match.host_reads and em.iterations count what the
-    engines do, and a retried quant reports the retry alone.
+  - match.groups, match.host_reads, em.iterations and em.segsum_sums
+    count what the engines do, and a retried quant reports the retry
+    alone.
 """
 
 import dataclasses
@@ -39,7 +40,7 @@ STAGES = {"fused": {"match", "classes", "em_assign", "quant_fused", "quant_fused
           "sharded": {"stream_match", "classes", "em_assign"}}
 COUNTERS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes",
             "match.groups", "match.host_reads", "match.eager_batches", "match.eager_sketch",
-            "match.group_kernel_batches", "em.iterations"}
+            "match.group_kernel_batches", "em.iterations", "em.segsum_sums"}
 GRAPHS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes"}
 # What match_scan declares (the fused and streamed engines' match), beside its graphs.
 SCAN = GRAPHS | {"match.eager_batches", "match.eager_sketch", "match.group_kernel_batches"}
@@ -233,6 +234,28 @@ def test_fused_counts_groups_reads_and_iterations(problem, ks, reads, host_reads
     assert res.timing["match.groups"] == groups == (1 if reads == "one" else 2)
     assert res.timing["match.host_reads"] == host_reads_per_group * groups
     assert res.timing["em.iterations"] == res.em_iterations
+
+
+@pytest.mark.parametrize("engine", ["fused", "streamed", "sharded", "checkpointed"])
+@pytest.mark.parametrize("segsum", ["on", "off"])
+def test_segsum_sums_count_the_sums_s_takes(problem, tmp_path, engine, segsum):
+    """em.segsum_sums: one a segmented sum, an EM iteration's and the
+    assignment's two (segsum_plain on the CPU), over every checkpoint
+    segment; 0 on the scatter route, which em_assign declares."""
+    artifact, index, cfg = problem[(31,)]
+    cfg = dataclasses.replace(cfg, em_segsum=segsum)
+    packed = problem["reads"]["one"]
+    if engine == "checkpointed":
+        cfg = dataclasses.replace(cfg, em_checkpoint=str(tmp_path / "em.npz"), em_checkpoint_every=3)
+        res = quantify(index, packed, cfg)
+    elif engine == "fused":
+        res = quantify(index, packed, cfg)
+    elif engine == "streamed":
+        res = quantify_streamed(index, packed, cfg)
+    else:
+        res = quantify_sharded(artifact, packed, cfg, device="cpu")
+    assert res.em_iterations > 3
+    assert res.timing["em.segsum_sums"] == (res.em_iterations + 2 if segsum == "on" else 0)
 
 
 def _streamed_host_reads(res, config, groups: int, chunks: int) -> int:
