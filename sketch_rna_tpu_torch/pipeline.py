@@ -106,8 +106,10 @@ class QuantResult:
     match.eager_batches (batches whose sketch ran eagerly because their
     length group takes K3) with the span match.eager_sketch (seconds in
     those groups' phase 1), match.group_kernel_batches (batches the
-    grouping kernel G grouped whole), and em.iterations.  A quant that
-    retries (a streamed wide-block spill) reports the retry alone.
+    grouping kernel G grouped whole), em.iterations, and in a streamed
+    run the counter stream.chunks with the span stream.upload (the
+    chunks' host-to-device copies and unpacks).  A quant that retries (a
+    streamed wide-block spill) reports the retry alone.
     """
 
     names: List[str]
@@ -447,8 +449,9 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     with no host round trip between batches).  Per length group:
 
       1. every batch (the last padded to a whole batch with empty reads;
-         a group of fewer reads than a batch is one batch of its size)
-         is sketched (K1 / K2, or K3 past 1024 windows) and probed (P),
+         a group of fewer reads than a batch is one batch of their count
+         rounded up to a power of two) is sketched (K1 / K2, or K3 past
+         1024 windows) and probed (P),
          and each k's largest per-read event total reduced on the device
          (event_size_tensor); the runs stay on the device;
       2. one host read of every batch's sizes (read(x, n), as in
@@ -460,7 +463,11 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     On a card, steps 1 and 3 replay CUDA graphs kept with the index
     (index.graphs, utils/step_graphs.py), keyed by their static shapes
     and the config fields they read, so a later call captures no key an
-    earlier one did; a group whose sketch takes K3 runs step 1 eagerly
+    earlier one did.  A batch's rows do not follow a group's exact read
+    count, so a key holds from call to call (and from chunk to chunk of a
+    stream) while a small group's count moves within a power of two:
+    empty reads add no events and no candidates, and their rows are
+    dropped.  A group whose sketch takes K3 runs step 1 eagerly
     (K3 reads its kept count to the host).  The per-k spill
     regroup and the tables' assembly are match_rows' (_match_tables, with
     sketch_match_step as the regroup).  Tables, row order, the padded
@@ -508,7 +515,9 @@ def match_scan(index: DeviceIndex, codes: torch.Tensor, lengths: np.ndarray, con
     with StepGraphs(index.device, index.graphs) as graphs:
         for n_rows, l_eff, group, group_lengths, caps in _groups(index, codes, np.asarray(lengths), config):
             n_padded += _round_up(n_rows, B)
-            Bg = min(B, n_rows)
+            # A small group's batch: its read count rounded up to a power of
+            # two, so its keys take a few shapes, not one a count.
+            Bg = min(B, pow2ceil(n_rows))
             inputs = list(zip(group.split(Bg), group_lengths.split(Bg)))
             if n_rows % Bg:  # the last batch, padded with empty reads: the same shapes as the rest
                 c, n = inputs[-1]

@@ -47,7 +47,7 @@ from sketch_rna_tpu_torch.em.classes import group_rows
 from sketch_rna_tpu_torch.index.artifact import DeviceIndex
 from sketch_rna_tpu_torch.io.packing import Packed2Reads, PackedReads, unpack_codes2
 from sketch_rna_tpu_torch.match.rowmatch import pow2ceil
-from sketch_rna_tpu_torch.utils.timing import HOST_READS, count, host_read, phase, quant_call, restart
+from sketch_rna_tpu_torch.utils.timing import HOST_READS, count, declare, host_read, phase, quant_call, restart
 
 log = logging.getLogger(__name__)
 
@@ -305,7 +305,10 @@ def stream_classes(
 ) -> StreamedClasses:
     """The chunk loop: upload, match (chunk_match_classes) and append
     every super-chunk's classes to the class buffers; the span
-    stream_match."""
+    stream_match.  Inside it each chunk counts one stream.chunks
+    (declared 0) and its upload is the span stream.upload: the host to
+    device copy and, for 2-bit codes, the unpack, ended by a device
+    sync."""
     from sketch_rna_tpu_torch.pipeline import STAT_KEYS
 
     dev = index.device
@@ -323,12 +326,16 @@ def stream_classes(
     R = num_mapped = n_cand_max = class_overflow = 0
     stats: Dict[str, object] = {key: 0 for key in STAT_KEYS + ("wide_spilled",)}
     with phase("stream_match", device=dev):
+        count("stream.chunks", 0)
+        declare("stream.upload")
         for chunk in _prefetched(_chunks_of(reads, eff_chunk)):
             n = chunk.num_reads
             if n == 0:
                 continue
             R += n
-            codes, lengths = _upload(chunk, dev)
+            count("stream.chunks")
+            with phase("stream.upload", device=dev, inner=True):
+                codes, lengths = _upload(chunk, dev)
             narrow, wide, ncm, mapped, st = chunk_match_classes(index, codes, lengths, config, nw if dual else 0,
                                                                 wide_rows, match)
             del codes

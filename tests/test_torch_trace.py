@@ -36,11 +36,13 @@ from sketch_rna_tpu_torch.utils.synth import sample_reads, synth_transcriptome
 from sketch_rna_tpu_torch.utils.timing import PhaseTimer
 
 STAGES = {"fused": {"match", "classes", "em_assign", "quant_fused", "quant_fused_per_s", "index_upload"},
-          "streamed": {"stream_match", "classes", "em_assign", "index_upload"},
-          "sharded": {"stream_match", "classes", "em_assign"}}
+          "streamed": {"stream_match", "stream.upload", "classes", "em_assign", "index_upload"},
+          "sharded": {"stream_match", "stream.upload", "classes", "em_assign"}}
 COUNTERS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes",
             "match.groups", "match.host_reads", "match.eager_batches", "match.eager_sketch",
-            "match.group_kernel_batches", "em.iterations", "em.segsum_sums"}
+            "match.group_kernel_batches", "em.iterations", "em.segsum_sums", "stream.chunks"}
+# What only the chunk loop (stream.stream_classes) counts.
+CHUNKS = {"stream.chunks"}
 GRAPHS = {"graphs.capture", "graphs.captures", "graphs.replays", "graphs.evictions", "graphs.reserved_bytes"}
 # What match_scan declares (the fused and streamed engines' match), beside its graphs.
 SCAN = GRAPHS | {"match.eager_batches", "match.eager_sketch", "match.group_kernel_batches"}
@@ -156,8 +158,10 @@ def test_inner_spans_do_not_log(caplog):
 @pytest.mark.parametrize("engine", ["fused", "streamed", "sharded"])
 def test_each_engine_reports_its_stage_keys_and_counters(problem, engine):
     res = _quant(problem, engine)
-    # The sharded engine's batch step runs eagerly: it makes no graphs and no match_scan.
-    assert set(res.timing) == STAGES[engine] | (COUNTERS - SCAN if engine == "sharded" else COUNTERS)
+    # The sharded engine's batch step runs eagerly: it makes no graphs and no match_scan; the
+    # fused engine has no chunk loop.
+    counters = {"fused": COUNTERS - CHUNKS, "streamed": COUNTERS, "sharded": COUNTERS - SCAN}[engine]
+    assert set(res.timing) == STAGES[engine] | counters
     assert all(res.timing[key] > 0 for key in STAGES[engine] - {"index_upload"})
     assert all(res.timing[key] == 0 for key in SCAN & set(res.timing))  # no card, no capture, no K3
     assert res.timing["em.iterations"] == res.em_iterations > 0
@@ -175,7 +179,7 @@ def test_an_enclosing_call_timer_takes_the_spans(problem):
     with PhaseTimer().opened() as timer:
         res = _quant(problem, "fused")
     assert res.timing == {"index_upload": problem[(31,)][1].upload_s}
-    assert set(timer.report()) == STAGES["fused"] - {"index_upload"} | COUNTERS
+    assert set(timer.report()) == STAGES["fused"] - {"index_upload"} | COUNTERS - CHUNKS
     assert timer.counts["em.iterations"] == res.em_iterations
 
 
